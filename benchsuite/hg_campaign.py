@@ -8,8 +8,7 @@ at 1 % error sampled against the planted truth coordinates, mapped
 with the ShardedMapper (escalation live), reporting per class:
 aligned %, true-locus % (+-3 bp), MAPQ>=20 share, true-locus at
 MAPQ>=20 — plus overall wrong-locus calibration at MAPQ >= 10/20/30.
-Output: one JSON line (BENCHMARKS.md "Repeat campaign" reproduces
-from this).
+Output: one JSON line.
 
 Graded run (index cached by hg_stage_bench):
   python benchsuite/hg_campaign.py --bp 3200001024 --shards 2

@@ -2,12 +2,11 @@
 
 Ref parity: the reference's warp-per-alignment wavefront scheduler +
 checkpointed traceback (nvbio/alignment/batched.h; SURVEY.md §3.5,
-§5.8(b-c)).  Here the wide-band score pass (one alignment's
-anti-diagonal across the whole vector window) certifies a narrow
+§5.8(b-c)).  Here the wide-band score pass certifies a narrow
 traceback band from the score gap, and a second pass emits the CIGAR
 — see nvbio_tpu/alignment/wide.py for the math.
 
-    python examples/long_cigar.py          # CPU twin path
+    python examples/long_cigar.py
 """
 
 import os
@@ -16,14 +15,12 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import jax
 
 from nvbio_tpu.alignment import GotohScheme, AlignmentType
 from nvbio_tpu.alignment.wide import wide_band_cigar_batch
 
 
 def main():
-    on_tpu = jax.default_backend() == "tpu"
     rng = np.random.default_rng(7)
     LP, BAND = 4000, 2000  # diagonal unknown within +-2000
     LT = LP + 2 * BAND
@@ -52,7 +49,7 @@ def main():
     out = wide_band_cigar_batch(
         pats, plens, texts, tlens,
         scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
-        band_w=BAND, use_pallas=on_tpu)
+        band_w=BAND)
 
     ops = "?MDI"
     for r in range(4):

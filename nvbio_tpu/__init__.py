@@ -1,7 +1,7 @@
-"""nvbio_tpu — a TPU-native short-read alignment framework.
+"""nvbio_tpu — a JAX short-read alignment framework.
 
 A from-scratch re-design of the capabilities of NVBIO
-(``07350100647/nvbio-gpl``, a mirror of NVlabs/nvbio) for TPU hardware:
+(``07350100647/nvbio-gpl``, a mirror of NVlabs/nvbio) for accelerators:
 JAX / XLA / Pallas compute path, fixed-shape batched pipelines, and
 `jax.sharding` meshes for scale-out.
 
@@ -18,10 +18,10 @@ Layer map (mirrors SURVEY.md §2):
 - ``io``         — FASTA/FASTQ readers, index container, SAM/BAM output (ref: nvbio/io/)
 - ``models``     — end-to-end mapper pipelines, the flagship being the
   nvBowtie-equivalent seed-and-extend mapper (ref: nvBowtie/)
-- ``ops``        — Pallas TPU kernels backing the hot paths
+- ``ops``        — the GPU DP kernel and the backend-keyed engine choice
 - ``parallel``   — device mesh, sharding, multi-host SAM merge
 - ``utils``      — configs, stats, logging
-- ``tools``      — CLI entry points (tpu_bwt, tpu_bowtie, ...)
+- ``tools``      — CLI entry points (build_index, map_reads, ...)
 """
 
 __version__ = "0.1.0"

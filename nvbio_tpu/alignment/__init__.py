@@ -1,6 +1,6 @@
 """Batched dynamic-programming alignment engine.
 
-TPU-native re-design of the reference's ``nvbio/alignment/`` layer
+JAX re-design of the reference's ``nvbio/alignment/`` layer
 (alignment.h — ``make_gotoh_aligner``/``make_smith_waterman_aligner``/
 ``make_edit_distance_aligner``; batched.h — ``BatchedAlignmentScore``;
 banded_inl.h — ``banded_alignment_score``).
@@ -15,9 +15,9 @@ Batching strategy (replaces the reference's CUDA thread/warp/persistent
 schedulers, SURVEY.md §3.12): alignments ride the *batch* axis, fully
 vectorized; each DP row advances with a `lax.scan` step, and the
 within-row horizontal-gap recurrence is solved exactly with a weighted
-cumulative max (max-plus scan).  The Pallas kernel in
-``nvbio_tpu.ops.banded_dp`` uses the same math with the batch across VPU
-lanes.
+cumulative max (max-plus scan).  The GPU kernel in
+``nvbio_tpu.ops.banded_dp`` uses the same math with one alignment per
+thread.
 """
 
 from .types import (  # noqa: F401

@@ -4,7 +4,7 @@ Replaces the reference's ``BatchedAlignmentScore`` /
 ``banded_alignment_score<BAND_LEN>`` (ref: nvbio/alignment/batched.h,
 banded_inl.h) CUDA schedulers with a fully vectorized formulation:
 
-- alignments ride the leading batch axis (the TPU equivalent of
+- alignments ride the leading batch axis (the vectorized form of
   one-thread-per-alignment data parallelism);
 - a `lax.scan` advances one DP row per step;
 - the within-row horizontal-gap recurrence
@@ -14,9 +14,10 @@ banded_inl.h) CUDA schedulers with a fully vectorized formulation:
   dependency is at the same k, the vertical at k+1 of the previous row,
   and the horizontal at k-1 of the current row.
 
-The Pallas TPU kernel (``nvbio_tpu.ops.banded_dp``) implements the same
-math with the batch across VPU lanes; this module is its oracle-checked
-XLA twin and the CPU/interpret fallback.
+The GPU kernel (``nvbio_tpu.ops.banded_dp``) implements the same math
+with one alignment per thread; this module is its oracle-checked XLA
+twin, the engine on every other backend, and the reference it is
+compared with.
 """
 
 from __future__ import annotations
@@ -289,3 +290,13 @@ def banded_directions_batch(
         scheme=scheme, atype=atype, band_w=band_w,
     )
     return res, jnp.transpose(dirs, (1, 0, 2))
+
+
+def window_slices(arr, starts, width: int):
+    """Per-lane contiguous windows ``arr[s : s + width]`` fetched as
+    one slice-level gather (vmapped dynamic_slice: one index per lane
+    instead of ``width``).  Starts are clamped to ``[0, len - width]``
+    by dynamic_slice semantics; callers keep a tail pad (the mapper's
+    genome carries ``lt_pad`` PAD symbols) so no live lane clamps."""
+    return jax.vmap(
+        lambda s: jax.lax.dynamic_slice(arr, (s,), (width,)))(starts)

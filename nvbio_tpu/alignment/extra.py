@@ -1,7 +1,7 @@
 """Remaining aligner taxonomy: Hamming and full-matrix wrappers.
 
 Ref parity: nvbio/alignment/alignment.h ``make_hamming_distance_aligner``
-and the full-matrix (non-banded) ``alignment_score`` paths.  On TPU the
+and the full-matrix (non-banded) ``alignment_score`` paths.  Here the
 full matrix is the banded engine with the band covering every diagonal
 — one code path, no separate kernel (the reference's Myers bit-vector
 aligner is an implementation alternative for edit distance, which the

@@ -4,7 +4,7 @@ Ref parity: nvbio/alignment/myers_inl.h — ``make_myers_aligner``, the
 reference's bit-parallel scoring-only edit-distance aligner.  The
 algorithm (Myers 1999, with Hyyrö's formulation) advances one text
 column per step using only bitwise ops and one addition per word —
-which on TPU vectorizes perfectly: each 32-bit word lives in an int32
+which vectorizes well: each 32-bit word lives in an int32
 lane, the batch is the leading axis, and the text scan is a
 ``lax.scan``.  Cost: O(Lt * ceil(Lp/32)) vector ops per alignment
 versus O(Lt * Lp) cells for the DP engine — the reason the reference

@@ -18,9 +18,8 @@ def runjump_walk(dirs_flat, STRIDE: int, i0, k0, active=None,
                   max_runs: int | None = None):
     """Run-level traceback walk: O(#CIGAR-runs) gather rounds.
 
-    A per-step walk is a chain of ~2L dependent single-element gathers;
-    on TPU each 16k-lane gather costs ~0.3 ms regardless of size (XLA
-    lowers gathers per-index), so the old walk was ~150 ms/batch.  The
+    A per-step walk is a chain of ~2L dependent single-element gathers,
+    each a separate device step regardless of its size.  The
     trace automaton's moves are runs — M-runs go straight down a band
     column, D-runs (E state) left along a row, I-runs (F state) down an
     anti-diagonal — so every cell's full run (length + landing cell) is

@@ -2,16 +2,15 @@
 
 Completes the long-alignment tier (ref: nvbio/alignment/batched.h
 warp-per-alignment wavefront scheduler + checkpointed traceback,
-SURVEY.md §3.5/§5.8(b-c)) for bands beyond the row-blocked direction
-kernel's VMEM reach (band_w ≳ 800): ONT-class long reads where the
-alignment diagonal is unknown up front.
+SURVEY.md §3.5/§5.8(b-c)) for wide bands (band_w in the hundreds to
+thousands): ONT-class long reads where the alignment diagonal is
+unknown up front.
 
-TPU-native design instead of checkpoint-recompute traceback:
+Score first, then trace a narrow certified band, instead of
+checkpoint-recompute traceback:
 
-1. **Score pass** at the requested wide band — the anti-diagonal
-   wavefront kernel (ops/wavefront_dp.py) via
-   ``banded_score_long_pallas``'s automatic dispatch.  O(1) memory
-   per alignment, no flags.
+1. **Score pass** at the requested wide band on the XLA twin
+   (``banded_score_batch``).  O(band) memory per alignment, no flags.
 2. **Band derivation** (host, exact): any path scoring ``s`` has at
    most ``g = (perfect(Lp) - s - min(open)) // min(extend)`` indels
    — each E/D or F/I step costs at least ``min(ee, fe)`` on top of
@@ -21,8 +20,8 @@ TPU-native design instead of checkpoint-recompute traceback:
    leftmost text column is ``>= d_end - g``, see derive_tb_band).
 3. **Traceback pass** on a window starting at text column
    ``max(d_end - g, 0)`` with the derived (quantized, <= ~2g) narrow
-   band — the row-blocked directions kernel + the run-jump walk,
-   both existing machinery.
+   band — ``ops.banded_directions`` + the run-jump walk, both existing
+   machinery.
 
 The derived band is a *certificate*, not a heuristic: pass 2's window
 contains an optimal pass-1 path entirely, so its score matches pass 1
@@ -32,12 +31,10 @@ tie-break, which can differ from a full-band twin's choice — the
 score and validity are identical.
 
 Alignments whose certificate exceeds ``max_tb_band`` (score gap
-> ~2300 at default penalties) take **pass 3** instead (round 3; was
-``tb_ok=False``): the wavefront kernel re-runs on just those lanes
-emitting per-cell direction flags to HBM
-(ops/wavefront_dp.wavefront_dirs_pallas) and the host walks them
-(alignment/wavefront_walk.py) — no band cap, so every valid lane
-gets a CIGAR regardless of score gap.
+> ~2300 at default penalties) take **pass 3** instead: the twin's
+direction pass re-runs on just those lanes at the full band and the
+run-jump walk traces its flags on the device — no band cap, so every
+valid lane gets a CIGAR regardless of score gap.
 """
 
 from __future__ import annotations
@@ -46,12 +43,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from .batched import banded_directions_batch, banded_score_batch
 from .types import AlignmentType, GotohScheme, NEG_INF, gap_penalties
 from .walk import runjump_walk
 
 #: static band ladder for the traceback pass: one compile variant per
-#: rung; 767 is the widest band the dirs kernel's VMEM model fits at
-#: row_block=8 (ops/long_dp.py _band_fits)
+#: rung; lanes past the last rung (flags of Lp * 1535 bytes each) take
+#: pass 3 a few lanes at a time
 TB_BANDS = (31, 63, 127, 255, 511, 767)
 PAD_SYMBOL = 7
 
@@ -111,8 +109,6 @@ def wide_band_cigar_batch(
     scheme: GotohScheme,
     atype: AlignmentType,
     band_w: int,
-    use_pallas: bool = True,
-    interpret: bool = False,
     max_tb_band: int = TB_BANDS[-1],
 ):
     """Wide-band banded Gotoh with CIGAR via the two-pass schedule.
@@ -124,10 +120,10 @@ def wide_band_cigar_batch(
     codes {0 none, 1 M, 2 D, 3 I}), ``tb_ok`` (bool: CIGAR present),
     ``tb_band`` (the band certificate used).
     """
+    from ..ops.banded_dp import banded_directions
+
     NB, Lp = patterns.shape
-    # bands past the ladder cannot be walked (row-blocked dirs kernel
-    # VMEM reach) — clamp so such lanes report tb_ok=False instead of
-    # failing at kernel compile
+    # bands past the ladder take pass 3 instead of a new compile variant
     max_tb_band = min(max_tb_band, TB_BANDS[-1])
     patterns = jnp.asarray(patterns)
     texts = jnp.asarray(texts)
@@ -135,21 +131,10 @@ def wide_band_cigar_batch(
     tlens_j = jnp.asarray(tlens, jnp.int32)
     quals_j = None if quals is None else jnp.asarray(quals)
 
-    # ---- pass 1: wide-band score (wavefront kernel past the
-    # row-blocked kernel's reach; XLA twin on CPU/test paths) ----
-    if use_pallas:
-        from ..ops.long_dp import banded_score_long_pallas
-
-        res1 = banded_score_long_pallas(
-            patterns, plens_j, texts, tlens_j, quals_j,
-            scheme=scheme, atype=atype, band_w=band_w,
-            interpret=interpret)
-    else:
-        from .batched import banded_score_batch
-
-        res1 = banded_score_batch(
-            patterns, plens_j, texts, tlens_j, quals_j,
-            scheme=scheme, atype=atype, band_w=band_w)
+    # ---- pass 1: wide-band score ----
+    res1 = banded_score_batch(
+        patterns, plens_j, texts, tlens_j, quals_j,
+        scheme=scheme, atype=atype, band_w=band_w)
     score = np.asarray(res1["score"]).astype(np.int64)
     p_end = np.asarray(res1["p_end"]).astype(np.int64)
     t_end = np.asarray(res1["t_end"]).astype(np.int64)
@@ -170,15 +155,14 @@ def wide_band_cigar_batch(
         "run_ops": np.zeros((NB, 1), np.uint8),
         "run_lens": np.zeros((NB, 1), np.int32),
     }
-    # lanes whose certificate exceeds the banded ladder walk the
-    # wavefront kernel's own flags instead (pass 3 below) — no band
-    # cap, so every valid lane gets a CIGAR
+    # lanes whose certificate exceeds the banded ladder are traced at
+    # the full band instead (pass 3 below) — no band cap, so every
+    # valid lane gets a CIGAR
     hard = valid & (need > max_tb_band)
     if not tb_ok.any():
         if hard.any():
-            _wavefront_tb(out, hard, patterns, plens, texts, tlens,
-                          quals, scheme, atype, band_w,
-                          interpret or not use_pallas)
+            _full_band_tb(out, hard, patterns, plens, texts, tlens,
+                          quals, scheme, atype, band_w)
         return out
 
     # ---- pass 2: re-positioned window, narrow-band directions DP ----
@@ -191,9 +175,8 @@ def wide_band_cigar_batch(
     Lt = texts.shape[1]
     off_j = jnp.asarray(off, jnp.int32)
     # one slice per lane, not LT2 gather indices per lane (the same
-    # slice-level fetch as ops.banded_dp.window_slices); the PAD tail
-    # keeps beyond-tlen symbols inert exactly like the old per-element
-    # clamp + where did
+    # slice-level fetch as batched.window_slices); the PAD tail keeps
+    # beyond-tlen symbols inert
     texts_p = jnp.pad(texts, ((0, 0), (0, LT2)),
                       constant_values=PAD_SYMBOL)
     texts2 = jax.vmap(
@@ -201,22 +184,11 @@ def wide_band_cigar_batch(
             texts_p, off_j)
     tlens2 = jnp.clip(tlens_j - off_j, 0, LT2)
 
-    if use_pallas:
-        from ..ops.banded_dp import banded_directions_pallas
-
-        res2, dirs_flat, BP = banded_directions_pallas(
-            patterns, plens_j, texts2, tlens2, quals_j,
-            scheme=scheme, atype=atype, band_w=B2,
-            interpret=interpret)
-        stride = int(BP)
-    else:
-        from .batched import banded_directions_batch
-
-        res2, dirs = banded_directions_batch(
-            patterns, plens_j, texts2, tlens2, quals_j,
-            scheme=scheme, atype=atype, band_w=B2)
-        stride = 2 * B2 + 1
-        dirs_flat = dirs.reshape(NB, Lp * stride)
+    res2, dirs = banded_directions(
+        patterns, plens_j, texts2, tlens2, quals_j,
+        scheme=scheme, atype=atype, band_w=B2)
+    stride = 2 * B2 + 1
+    dirs_flat = dirs.reshape(NB, Lp * stride)
 
     i0 = res2["p_end"].astype(jnp.int32)
     k0 = res2["t_end"].astype(jnp.int32) - i0 + B2
@@ -246,61 +218,53 @@ def wide_band_cigar_batch(
     out["run_ops"] = np.asarray(run_ops)
     out["run_lens"] = np.asarray(run_lens)
     if hard.any():
-        _wavefront_tb(out, hard, patterns, plens, texts, tlens, quals,
-                      scheme, atype, band_w,
-                      interpret or not use_pallas)
+        _full_band_tb(out, hard, patterns, plens, texts, tlens, quals,
+                      scheme, atype, band_w)
     return out
 
 
-def _wavefront_tb(out, hard, patterns, plens, texts, tlens, quals,
-                  scheme, atype, band_w, interpret):
+def _full_band_tb(out, hard, patterns, plens, texts, tlens, quals,
+                  scheme, atype, band_w):
     """Pass 3: CIGARs for lanes beyond the certificate ladder.
 
-    Re-runs the wavefront kernel on just the hard lanes with per-cell
-    flag emission (ops/wavefront_dp.wavefront_dirs_pallas) and walks
-    the flags on the host (alignment/wavefront_walk.py).  The kernel
-    is the same recurrence as pass 1, so scores/ends are unchanged;
-    only the CIGAR is new.  Flag HBM is ~NC*DC/8*NR8*512 B per lane
-    (tens of MB at 10 kb/band 2000) — hard lanes are walked in small
-    slices so the working set stays bounded.
+    Re-runs the twin's direction pass on just the hard lanes at the
+    full band and walks its flags on the device (``runjump_walk``).
+    It is the same recurrence as pass 1, so scores and ends are
+    unchanged; only the CIGAR is new.  Flags take Lp * (2 * band_w + 1)
+    bytes per lane (tens of MB at 10 kb / band 2000), so hard lanes go
+    in small slices and the working set stays bounded.
     """
-    from ..ops.wavefront_dp import wavefront_dirs_pallas
-    from .wavefront_walk import walk_wavefront_dirs_device, compress_ops
-
     idx = np.flatnonzero(np.asarray(hard))
     patterns = np.asarray(patterns)
     texts = np.asarray(texts)
     plens = np.asarray(plens)
     tlens = np.asarray(tlens)
     quals = None if quals is None else np.asarray(quals)
+    Lp = patterns.shape[1]
+    stride = 2 * band_w + 1
     runs_all = {}
-    SLICE = 8  # lanes per kernel call (flag HBM bound)
+    SLICE = 8  # lanes per call (flag memory bound)
     for s0 in range(0, idx.size, SLICE):
         sl = idx[s0:s0 + SLICE]
-        res, dirs, plan = wavefront_dirs_pallas(
-            patterns[sl], plens[sl].astype(np.int32), texts[sl],
-            tlens[sl].astype(np.int32),
-            None if quals is None else quals[sl],
-            scheme=scheme, atype=atype, band_w=band_w,
-            interpret=interpret)
-        # the flags STAY in HBM: the device walk (one flag gather per
-        # lane per step inside a while_loop) replaces the 320-576 MB
-        # dirs D2H with a ~KB/lane op-stream transfer (VERDICT r4 #5;
-        # bit-identical to the host walk, tested)
-        ops_d, n_d, ps_d, ts_d = walk_wavefront_dirs_device(
-            dirs, res["p_end"], res["t_end"], plan=plan,
-            band_w=band_w)
-        ops_h = np.asarray(ops_d)
-        n_h = np.asarray(n_d)
-        ps_h = np.asarray(ps_d)
-        ts_h = np.asarray(ts_d)
+        res, dirs = banded_directions_batch(
+            jnp.asarray(patterns[sl]), jnp.asarray(plens[sl], jnp.int32),
+            jnp.asarray(texts[sl]), jnp.asarray(tlens[sl], jnp.int32),
+            None if quals is None else jnp.asarray(quals[sl]),
+            scheme=scheme, atype=atype, band_w=band_w)
+        i0 = res["p_end"].astype(jnp.int32)
+        k0 = res["t_end"].astype(jnp.int32) - i0 + band_w
+        fi, fk, run_ops, run_lens = runjump_walk(
+            dirs.reshape(len(sl), Lp * stride), stride, i0, k0)
         sc = np.asarray(res["score"])
+        fi, fk = np.asarray(fi), np.asarray(fk)
+        run_ops, run_lens = np.asarray(run_ops), np.asarray(run_lens)
         for li, b in enumerate(sl):
-            # pass 1 and pass 3 run the same kernel: ends must agree
+            # pass 1 and pass 3 run the same recurrence: ends agree
             assert sc[li] == out["score"][b], (b, sc[li],
                                                out["score"][b])
-            ro, rl = compress_ops(ops_h[li, :n_h[li]])
-            runs_all[b] = (ro, rl, int(ps_h[li]), int(ts_h[li]))
+            keep = run_ops[li] != 0
+            runs_all[b] = (run_ops[li][keep], run_lens[li][keep],
+                           int(fi[li]), int(fi[li] + fk[li] - band_w))
     if not runs_all:
         return
     # device-derived arrays are read-only views; mutation needs copies

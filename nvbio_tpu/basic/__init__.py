@@ -1,6 +1,6 @@
 """Core runtime: packed symbol streams, alphabets, bit primitives.
 
-TPU-native re-design of the reference's ``nvbio/basic/`` layer
+JAX re-design of the reference's ``nvbio/basic/`` layer
 (packedstream.h, dna.h, popcount.h — symbols ``PackedStream``,
 ``char_to_dna``, ``popc_2bit``). Instead of a templated iterator zoo we
 expose flat ``uint32`` word arrays + vectorized pack/unpack/popcount

@@ -1,7 +1,7 @@
 """Bloom filters (device-side, JAX).
 
 Ref parity: nvbio/basic/bloom_filter.h (``bloom_filter``,
-``blocked_bloom_filter``) — the backing store of nvLighter.  TPU
+``blocked_bloom_filter``) — the backing store of nvLighter.  Fixed-shape
 design: one byte per slot (scatter-max inserts, gather queries — XLA
 has no atomic-OR scatter on packed bits, and HBM capacity at our
 scales makes the 8x trade worthwhile; a packed uint32 variant can come
@@ -12,14 +12,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import jax
 
 import jax.numpy as jnp
 
-_SALTS = jnp.array(
+# NumPy, not jnp: importing a module must not initialize a JAX backend
+_SALTS = np.array(
     [0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F,
      0x165667B1, 0xD3A2646C, 0xFD7046C5, 0xB55A4F09],
-    dtype=jnp.uint32,
+    dtype=np.uint32,
 )
 
 

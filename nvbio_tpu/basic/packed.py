@@ -1,6 +1,6 @@
 """2-bit packed symbol streams.
 
-TPU-native replacement for the reference's ``PackedStream`` /
+JAX replacement for the reference's ``PackedStream`` /
 ``PackedVector`` (ref: nvbio/basic/packedstream.h, packed_vector.h) and
 its 2-bit popcount primitives (ref: nvbio/basic/popcount.h —
 ``popc_2bit``).  Rather than an iterator abstraction we store flat

@@ -1,6 +1,6 @@
 """FM-index: blocked occurrence tables, backward search, SSA locate.
 
-TPU-native re-design of the reference's ``nvbio/fmindex/`` layer (ref:
+JAX re-design of the reference's ``nvbio/fmindex/`` layer (ref:
 fmindex.h — ``fm_index``, ``rank()``, ``locate()``; rank_dictionary.h —
 ``rank_dictionary``, ``rank4``; ssa.h — ``SSA_index_multiple``;
 filter.h — ``FMIndexFilter``).

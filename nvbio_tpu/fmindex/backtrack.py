@@ -4,7 +4,7 @@ Ref parity: nvbio/fmindex/backtrack.h — ``hamming_backtrack()``, the
 DFS-with-stack kernel behind nvBowtie's ``-N 1`` seeding
 (mapping_inl.h ``map_approx``).
 
-TPU-native reformulation: the DFS over one-substitution branches
+Batched reformulation: the DFS over one-substitution branches
 becomes a *wavefront of all branches at once*.  One exact backward
 pass records the SA range of every seed suffix; then a second scan
 walks positions right-to-left carrying the state of every (position p,

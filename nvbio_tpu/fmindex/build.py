@@ -60,7 +60,7 @@ OCC_CHUNK_BLOCKS = 1 << 20
 def occ_tables_device(bwt_words: np.ndarray):
     """Blocked occ tables computed ON DEVICE from the packed BWT words
     (ref: io/fmindex/fmindex.cpp builds device occ tables at load; here
-    the TPU does the counting itself — 2-bit-symbol popcounts per
+    the device does the counting itself — 2-bit-symbol popcounts per
     16-symbol word + a device cumsum; SURVEY.md §4.4, config 4).
 
     Upload = the packed BWT (0.25 B/symbol); download = occ_abs

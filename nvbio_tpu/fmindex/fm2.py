@@ -1,8 +1,8 @@
 """2-step FM-index (pair-BWT): halved dependent-gather chains.
 
 The mapper's two hot loops — backward search and the SSA locate walk —
-are chains of LF gathers; on TPU their cost is the *number of gathered
-indices* (XLA lowers gathers to ~per-index work), so the win is
+are chains of LF gathers; their cost is the *number of dependent
+gathered indices*, so the win is
 consuming two pattern symbols / two text steps per gather round with
 the SAME per-round gather count as the 1-step index.  This is the k=2
 case of the n-step FM-index construction (Chacón et al. 2013): a
@@ -33,7 +33,7 @@ of extra device memory, opt-out via MapperParams.use_fm2 for
 memory-tight hg-scale multi-shard runs.
 
 Ref parity: the reference reaches the same goal with texture-cached
-rank4() gathers (rank_dictionary.h); on TPU the win is shortening the
+rank4() gathers (rank_dictionary.h); here the win is shortening the
 dependent chain, which no cache can do.
 """
 
@@ -50,8 +50,8 @@ from .index import FMIndex, SSA, rank, _is_marked, _rank1
 from ..basic.packed import popc_2bit_prefix
 
 BLOCK2 = 128  # pairs per occ block (16 words x 8 nibbles)
-_M1 = jnp.uint32(0x11111111)
-_M7 = jnp.uint32(0x77777777)
+_M1 = np.uint32(0x11111111)
+_M7 = np.uint32(0x77777777)
 
 
 class FM2(NamedTuple):
@@ -77,8 +77,8 @@ def _popc_nibble_prefix(word, p, rn):
 def rank2(fm2: FM2, p, i):
     """#{j < i : pair2[j] == p}.  p, i broadcastable int32 arrays; the
     two sentinel-adjacent rows (pairs stored as 0) are excluded.
-    Exactly three gathered elements per query — the TPU cost model's
-    unit — same as the 1-step rank()."""
+    Exactly three gathered elements per query — the same as the
+    1-step rank()."""
     b = i >> 7
     w = (i >> 3) & 15
     rn = i & 7

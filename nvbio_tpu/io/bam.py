@@ -97,7 +97,7 @@ def _parse_cigar(cigar: str):
 class BamWriter:
     """BAM encoder over BGZF (API mirrors SamWriter)."""
 
-    def __init__(self, path, ref_names, ref_lens, program="tpu_bowtie",
+    def __init__(self, path, ref_names, ref_lens, program="nvbio_bowtie",
                  version="0.1.0", cmdline="", rg_line: str | None = None):
         self._w = BgzfWriter(path)
         self._refs = {n: i for i, n in enumerate(ref_names)}

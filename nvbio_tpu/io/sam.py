@@ -58,7 +58,7 @@ class SamRecord:
 class SamWriter:
     """Streaming SAM text writer (plain or .gz)."""
 
-    def __init__(self, path, ref_names, ref_lens, program="tpu_bowtie",
+    def __init__(self, path, ref_names, ref_lens, program="nvbio_bowtie",
                  version="0.1.0", cmdline="", append=False,
                  rg_line: str | None = None):
         path = str(path)

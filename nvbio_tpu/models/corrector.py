@@ -4,7 +4,7 @@ Ref parity: nvLighter/ (SURVEY.md §3.9, §4.5) — a GPU re-build of the
 Lighter corrector: pass 1 subsamples read k-mers (rate alpha) into a
 Bloom filter; pass 2 tests k-mer trust and greedily corrects bases.
 
-TPU re-design, fixed shapes throughout:
+Batched re-design, fixed shapes throughout:
 
 - pass 1: one batched count-min-sketch pass over all read k-mers
   (replacing Lighter's alpha-sampled filter A + trust-derivation pass

@@ -6,7 +6,7 @@ The reference pipeline (ref: nvBowtie/bowtie2/cuda/best_approx_inl.h —
     seed -> map (FM backward search) -> select -> locate -> score
     (banded Gotoh) -> reduce (top-2) -> traceback -> MAPQ -> SAM
 
-re-designed for TPU as two jitted fixed-shape stages plus host
+re-designed for XLA as two jitted fixed-shape stages plus host
 formatting:
 
 1. ``map_batch`` — the forward step: both strands are seeded uniformly
@@ -23,14 +23,8 @@ formatting:
    (native/traceback.cpp) assembles CIGAR/MD/NM strings.
 
 The ``Mapper`` class wires index + genome + params and produces SAM.
-
-Perf notes (measured on one v5e chip, 20 Mbp index, 100 bp reads;
-BENCHMARKS.md has the per-step table): length bucketing, the
-rarity-first locate budget, the fused-gather LF walk, packed-genome
-extension windows (banded_score_pallas_packed), the compacted SSA
-locate (locate_compact), sa_sample=4 indexes, the one-pass Pallas
-directions kernel and the early-exit traceback walk put the
-device-side pipeline at ~17k reads/s/chip (SE, batch 16384).
+The banded DP engine of both stages is chosen by
+``ops.select_banded_dp`` from the backend and the band.
 """
 
 from __future__ import annotations
@@ -42,15 +36,13 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..alignment import banded_score_batch, banded_directions_batch
 from ..alignment.cigar import cigar_to_string, make_md_string
 from ..alignment.types import NEG_INF, AlignmentType
 from ..fmindex import (FMIndex, SSA, backward_search, locate,
                        backward_search2, locate2, locate2_mono,
                        build_fm2)
-from ..ops.banded_dp import (banded_score_pallas,
-                             banded_score_pallas_packed,
-                             pack_genome_words, window_slices)
+from ..alignment.batched import window_slices
+from ..ops.banded_dp import banded_directions, banded_score
 from ..strings.seeds import extract_uniform_seeds, num_uniform_seeds
 from ..basic.alphabet import dna_to_char
 from ..io.sam import SamRecord, FLAG_UNMAPPED, FLAG_REVERSE
@@ -65,9 +57,9 @@ def _revcomp_batch(reads, lens, quals, uniform_shift: int = -1):
 
     ``uniform_shift`` (static, >= 0): every read has the same length,
     pad_width - length == uniform_shift, so the reverse is a free
-    static flip + static left-shift instead of a per-row gather (the
-    gather costs ~9 ns/element on TPU; uniform-length batches are the
-    common Illumina case and the dispatcher knows from host lens)."""
+    static flip + static left-shift instead of a per-row gather
+    (uniform-length batches are the common Illumina case and the
+    dispatcher knows from host lens)."""
     R, L = reads.shape
     if uniform_shift >= 0:
         sh = uniform_shift
@@ -135,8 +127,6 @@ def extend_candidates(
     cand,  # (2R, M) candidate genome start positions, >= SENT invalid
     *,
     params: MapperParams,
-    use_pallas: bool = False,
-    gwords=None,  # 2-bit packed genome (pack_genome_words) fast path
 ):
     """Diagonal dedupe + banded Gotoh extension of located candidates.
 
@@ -200,22 +190,11 @@ def extend_candidates(
     pquals = all_quals[ridx_c]
     plens = jnp.where(lane_ok, lens2[ridx_c], 0)  # pad lanes exit early
     tlens = jnp.clip(n - ws_c, 0, LT)
-    from ..ops.banded_dp import LONG_THRESHOLD
-    if use_pallas and gwords is not None and L <= LONG_THRESHOLD:
-        # packed-word windows: ~LT/16 gathered elements per candidate
-        # instead of LT (the symbol-window gather dominated this stage)
-        res = banded_score_pallas_packed(
-            pats, plens, gwords, ws_c, tlens, pquals,
-            scheme=params.scheme, atype=params.atype, band_w=W,
-        )
-    else:
-        gidx = ws_c[:, None] + jnp.arange(LT, dtype=jnp.int32)
-        texts = genome[gidx]
-        score_fn = banded_score_pallas if use_pallas else banded_score_batch
-        res = score_fn(
-            pats, plens, texts, tlens, pquals,
-            scheme=params.scheme, atype=params.atype, band_w=W,
-        )
+    texts = window_slices(genome, ws_c, LT)  # genome carries lt_pad PAD
+    res = banded_score(
+        pats, plens, texts, tlens, pquals,
+        scheme=params.scheme, atype=params.atype, band_w=W,
+    )
     # scatter back to the (C, R2) slot layout; dropped slots NEG_INF
     back = jnp.minimum(cpos, EXT_CAP - 1)
     scores = jnp.where(keep, res["score"][back], NEG_INF) \
@@ -414,9 +393,7 @@ def candidate_stage(
     quals,  # (R, L) uint8/int32
     *,
     params: MapperParams,
-    use_pallas: bool = False,
     lut=None,
-    gwords=None,
     fm2=None,
     bi: bool = False,
     uniform_shift: int = -1,
@@ -491,8 +468,7 @@ def candidate_stage(
             [cand, cand_v.reshape(2 * R, S * Ls * 4 * CAPV)], axis=1)
 
     out = extend_candidates(
-        fm, genome, all_reads, all_quals, lens2, cand,
-        params=params, use_pallas=use_pallas, gwords=gwords,
+        fm, genome, all_reads, all_quals, lens2, cand, params=params,
     )
     # locate-budget overflow count (ADVICE r1: locate_frac drops must
     # be observable — repetitive batches can exhaust the cross-read
@@ -503,8 +479,8 @@ def candidate_stage(
     return out
 
 
-@functools.partial(jax.jit, static_argnames=("params", "use_pallas",
-                                              "bi", "uniform_shift"))
+@functools.partial(jax.jit, static_argnames=("params", "bi",
+                                              "uniform_shift"))
 def map_batch(
     fm: FMIndex,
     ssa: SSA,
@@ -514,9 +490,7 @@ def map_batch(
     quals,
     *,
     params: MapperParams,
-    use_pallas: bool = False,
     lut=None,
-    gwords=None,
     fm2=None,
     bi: bool = False,
     uniform_shift: int = -1,
@@ -528,8 +502,8 @@ def map_batch(
     """
     cands = candidate_stage(
         fm, ssa, genome, reads, lens, quals,
-        params=params, use_pallas=use_pallas, lut=lut, gwords=gwords,
-        fm2=fm2, bi=bi, uniform_shift=uniform_shift,
+        params=params, lut=lut, fm2=fm2, bi=bi,
+        uniform_shift=uniform_shift,
     )
     return top2_finish(cands, lens, params)
 
@@ -545,8 +519,7 @@ def top2_finish(cands, lens, params: MapperParams):
     ws = cands["win_start"]
     bi = jnp.argmax(sc, axis=1)
     best = jnp.take_along_axis(sc, bi[:, None], axis=1)[:, 0]
-    # mask-by-compare, NOT .at[].set(): TPU lowers row scatters
-    # serially (~0.1 ms/row; measured 440 ms per batch at R=4096)
+    # mask-by-compare: no scatter, so no duplicate-index ordering
     cols_m = jnp.arange(sc.shape[1], dtype=jnp.int32)
     sc_masked = jnp.where(cols_m[None, :] == bi[:, None], NEG_INF, sc)
     second = jnp.max(sc_masked, axis=1)
@@ -597,10 +570,9 @@ def traceback_batch(
     rc_reads, rc_quals = _revcomp_batch(reads, lens, quals)
     pats = jnp.where(strand[:, None] == 1, rc_reads, reads)
     pquals = jnp.where(strand[:, None] == 1, rc_quals, quals)
-    gidx = win_start[:, None] + jnp.arange(LT, dtype=jnp.int32)
-    texts = genome[gidx]
+    texts = window_slices(genome, win_start, LT)
     tlens = jnp.clip(n - win_start, 0, LT)
-    res, dirs = banded_directions_batch(
+    res, dirs = banded_directions(
         pats, lens, texts, tlens, pquals,
         scheme=params.scheme, atype=params.atype, band_w=W,
     )
@@ -642,12 +614,10 @@ def unpack_dirs(packed: np.ndarray, band: int) -> np.ndarray:
     return dirs[:, :, :band]
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("params", "use_pallas", "interpret"))
+@functools.partial(jax.jit, static_argnames=("params",))
 def traceback_walk_batch(
     genome, n, reads, lens, quals, win_start, strand, *,
-    params: MapperParams, use_pallas: bool = False, active=None,
-    interpret: bool = False,
+    params: MapperParams, active=None,
 ):
     """Winners-only DP + ON-DEVICE traceback walk.
 
@@ -661,58 +631,37 @@ def traceback_walk_batch(
     """
     L = reads.shape[1]
     LT = L + 2 * params.band_w
-    # one slice per lane (genome carries lt_pad tail PAD), not LT
-    # gather indices per lane — see ops.banded_dp.window_slices
+    # one slice per lane (genome carries lt_pad tail PAD)
     texts = window_slices(genome, win_start, LT)
     tlens = jnp.clip(n - win_start, 0, LT)
     return traceback_walk_windows(texts, tlens, reads, lens, quals,
-                                  strand, params=params,
-                                  use_pallas=use_pallas, active=active,
-                                  interpret=interpret)
+                                  strand, params=params, active=active)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("params", "use_pallas", "interpret"))
+@functools.partial(jax.jit, static_argnames=("params",))
 def traceback_walk_windows(
     texts, tlens, reads, lens, quals, strand, *, params: MapperParams,
-    use_pallas: bool = False, active=None, interpret: bool = False,
+    active=None,
 ):
     """Core of traceback_walk_batch over pre-gathered window texts
     (shape (R, L + 2*band_w)).  Sharded mappers gather each lane's
-    winner-shard window first, so ONE walk serves all shards.  With
-    use_pallas the winners DP + flag emission run as one Pallas pass
-    (banded_directions_pallas) instead of the XLA scan twin."""
+    winner-shard window first, so ONE walk serves all shards.  The
+    winners DP and its flag emission run on the engine
+    ``ops.select_banded_dp`` picks."""
     R, L = reads.shape
     W = params.band_w
     BAND = 2 * W + 1
-    LT = L + 2 * W
     rc_reads, rc_quals = _revcomp_batch(reads, lens, quals)
     pats = jnp.where(strand[:, None] == 1, rc_reads, reads)
     pquals = jnp.where(strand[:, None] == 1, rc_quals, quals)
-    if use_pallas:
-        from ..ops.banded_dp import banded_directions_pallas
-
-        res, dirs_flat, _ = banded_directions_pallas(
-            pats, lens, texts, tlens, pquals,
-            scheme=params.scheme, atype=params.atype, band_w=W,
-            interpret=interpret,
-        )
-        LPS = dirs_flat.shape[1]
-        # static stride: the jitted callee's Python-int return is a
-        # tracer under an outer jit, but _runjump_walk reshapes with it
-        STRIDE = LPS // ((L + 7) // 8 * 8)
-    else:
-        res, dirs = banded_directions_batch(
-            pats, lens, texts, tlens, pquals,
-            scheme=params.scheme, atype=params.atype, band_w=W,
-        )
-        STRIDE = BAND
-        dirs_flat = dirs.reshape(R, L * BAND)
-        LPS = L * BAND
+    res, dirs = banded_directions(
+        pats, lens, texts, tlens, pquals,
+        scheme=params.scheme, atype=params.atype, band_w=W,
+    )
     i0 = res["p_end"].astype(jnp.int32)
     k0 = res["t_end"].astype(jnp.int32) - i0 + W
     fi, fk, run_ops, run_lens = _runjump_walk(
-        dirs_flat, STRIDE, i0, k0, active=active,
+        dirs.reshape(R, L * BAND), BAND, i0, k0, active=active,
         max_runs=_max_cigar_runs(L, params))
     return res, {
         "run_ops": run_ops,
@@ -768,8 +717,8 @@ class Mapper:
 
     def __init__(self, fm, ssa, genome_symbols: np.ndarray,
                  params: MapperParams = MapperParams(),
-                 ref_name: str = "ref", use_pallas: bool | None = None,
-                 contigs: dict | None = None, lut=None):
+                 ref_name: str = "ref", contigs: dict | None = None,
+                 lut=None):
         # fused block rows: 1 HBM gather per rank/LF instead of 3
         # (fmindex.index.fuse_occ; +~0.6 B/bp device memory)
         from ..fmindex.index import fuse_occ
@@ -798,12 +747,6 @@ class Mapper:
         gp[: self.n] = genome_symbols
         self.genome = jnp.asarray(gp)
         self._genome_np = gp  # host copy for the native traceback walk
-        if use_pallas is None:
-            use_pallas = jax.default_backend() not in ("cpu",)
-        # 2-bit packed genome for the extension fast path (TPU only)
-        self.gwords = (pack_genome_words(gp[: self.n])
-                       if use_pallas else None)
-        self.use_pallas = use_pallas
         # 2-step FM-index: halves the backward-search gather chain;
         # with a bi-marked SSA also shortens the locate walk
         self.fm2 = build_fm2(fm) if self.params.use_fm2 else None
@@ -927,7 +870,7 @@ class Mapper:
         res, walk = traceback_walk_batch(
             self.genome, jnp.asarray(self.n, jnp.int32), jr, jl, jq,
             fwd["win_start"], fwd["strand"], params=params,
-            use_pallas=self.use_pallas, active=fwd["aligned"],
+            active=fwd["aligned"],
         )
         return (seqs, lens, quals, fwd, res, walk, R)
 
@@ -1048,9 +991,8 @@ class Mapper:
         """The jitted forward mapping step; subclasses swap seeding."""
         return map_batch(
             self.fm, self.ssa, self.genome, jr, jl, jq,
-            params=params or self.params, use_pallas=self.use_pallas,
-            lut=self.lut, gwords=self.gwords, fm2=self.fm2, bi=self.bi,
-            uniform_shift=uniform_shift,
+            params=params or self.params, lut=self.lut, fm2=self.fm2,
+            bi=self.bi, uniform_shift=uniform_shift,
         )
 
     @staticmethod
@@ -1229,8 +1171,8 @@ class Mapper:
         jq = jnp.asarray(quals.astype(np.uint8))
         fwd = map_all_batch(
             self.fm, self.ssa, self.genome, jr, jl, jq,
-            params=self.params, use_pallas=self.use_pallas, k=k,
-            lut=self.lut, gwords=self.gwords, fm2=self.fm2, bi=self.bi,
+            params=self.params, k=k, lut=self.lut, fm2=self.fm2,
+            bi=self.bi,
         )
         K = fwd["score"].shape[1]
         # traceback every slot: flatten (B, K) -> (B*K) pseudo-batch
@@ -1239,8 +1181,7 @@ class Mapper:
             self.genome, jnp.asarray(self.n, jnp.int32),
             rep(jr), jnp.repeat(jl, K), rep(jq),
             fwd["win_start"].reshape(-1), fwd["strand"].reshape(-1),
-            params=self.params, use_pallas=self.use_pallas,
-            active=fwd["valid"].reshape(-1),
+            params=self.params, active=fwd["valid"].reshape(-1),
         )
         flat_fwd = {
             "aligned": np.asarray(fwd["valid"]).reshape(-1),
@@ -1281,7 +1222,7 @@ class Mapper:
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("params", "use_pallas", "k", "bi"))
+                   static_argnames=("params", "k", "bi"))
 def map_all_batch(
     fm: FMIndex,
     ssa: SSA,
@@ -1291,10 +1232,8 @@ def map_all_batch(
     quals,
     *,
     params: MapperParams,
-    use_pallas: bool = False,
     k: int = 8,
     lut=None,
-    gwords=None,
     fm2=None,
     bi: bool = False,
 ):
@@ -1310,8 +1249,7 @@ def map_all_batch(
     k = min(k, 2 * C)
     cands = candidate_stage(
         fm, ssa, genome, reads, lens, quals,
-        params=params, use_pallas=use_pallas, lut=lut, gwords=gwords,
-        fm2=fm2, bi=bi,
+        params=params, lut=lut, fm2=fm2, bi=bi,
     )
     sc = cands["score"]
     order = jnp.argsort(-sc, axis=1)[:, :k]  # (R, k) score-descending

@@ -31,7 +31,7 @@ from .mapper import Mapper, both_strands, extend_candidates, top2_finish
 from .params import MapperParams
 
 
-@functools.partial(jax.jit, static_argnames=("params", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("params",))
 def mem_map_batch(
     fm: FMIndex,
     ssa: SSA,
@@ -41,8 +41,6 @@ def mem_map_batch(
     quals,
     *,
     params: MapperParams,
-    use_pallas: bool = False,
-    gwords=None,
 ):
     """Forward MEM-mapping step; same output contract as
     ``mapper.map_batch`` (per-read best/second/strand/mapq)."""
@@ -86,8 +84,7 @@ def mem_map_batch(
     cands = extend_candidates(
         fm, genome, all_reads, all_quals, lens2,
         cand.reshape(2 * R, K * CAP),
-        params=params, use_pallas=use_pallas, gwords=gwords,
-    )
+        params=params)
     return top2_finish(cands, lens, params)
 
 
@@ -101,6 +98,4 @@ class MemMapper(Mapper):
         del uniform_shift  # MEM/q-gram seeding reverse-complements per candidate
         return mem_map_batch(
             self.fm, self.ssa, self.genome, jr, jl, jq,
-            params=params or self.params, use_pallas=self.use_pallas,
-            gwords=self.gwords,
-        )
+            params=params or self.params)

@@ -1,14 +1,15 @@
-"""Shard-per-chip mapping: one FM-index shard per device over a mesh.
+"""Shard-per-device mapping: one FM-index shard per device over a mesh.
 
-The TPU-native scale-out layout from SURVEY.md §5.8 ("index sharded
-over ICI with shard_map"): each shard of a beyond-HBM/beyond-int32
-reference lives in its own device's HBM, the read batch is replicated,
+The scale-out layout from SURVEY.md §5.8 ("index sharded over the
+interconnect with shard_map"): each shard of a beyond-memory/beyond-int32
+reference lives in its own device's memory, the read batch is replicated,
 and per-shard candidate stages run CONCURRENTLY — where the sequential
 single-device ShardedMapper pays S x the candidate work per batch, the
 mesh pays it once per chip in parallel (converting the hg38 3-shard
 3x sequential tax into 3-chip parallelism).
 
-Collective plan (all riding ICI, one round each):
+Collective plan (one round each over the device interconnect; the mesh
+is a flat 1-D ``shard`` axis):
   1. per-device candidate stage on the local shard (ownership-masked)
   2. `all_gather` of the (R, 2C) candidate arrays over the ``shard``
      axis -> every device reduces the same (R, S*2C) top-2, via the
@@ -38,7 +39,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..alignment.types import NEG_INF
 from ..fmindex.index import FMIndex, SSA
 from ..fmindex.fm2 import FM2
-from ..ops.banded_dp import pack_genome_words, window_slices
+from ..alignment.batched import window_slices
 from .mapper import (candidate_stage, traceback_walk_windows, PAD,
                      _score_min)
 from .params import MapperParams
@@ -46,14 +47,30 @@ from .sharded_mapper import (ShardedMapper, PairedShardedMapper,
                              _top2_concat, _pe_merge_stacked)
 
 
+def device_bytes_limit(device) -> int:
+    """Bytes the backend lets this process allocate on ``device``
+    (``memory_stats()["bytes_limit"]``).  CPU devices report none and
+    share the host's memory, so they get the host's physical memory;
+    any other device that reports no limit is an error, not a guess."""
+    stats = device.memory_stats() or {}
+    if stats.get("bytes_limit"):
+        return int(stats["bytes_limit"])
+    if device.platform == "cpu":
+        import os
+        return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    raise ValueError(
+        f"{device.platform} device {device} reports no memory limit "
+        "(memory_stats()['bytes_limit']); cannot size the shard layout")
+
+
 def stack_sharded_index(sidx, genome_np: np.ndarray,
-                        params: MapperParams, use_pallas: bool):
+                        params: MapperParams):
     """Stack per-shard device structures along a leading shard axis.
 
     Shards are padded to common shapes (zeros for index tables — query
     rows never reach the pad because row indices are bounded by each
     shard's own n; PAD symbols for genome slices).  Returns
-    (stacked dict of (S, ...) arrays, ssa_k, has_lut, has_gwords).
+    (stacked dict of (S, ...) arrays, ssa_k, has_lut).
     """
     lt_pad = params.max_read_len + 2 * params.band_w + 8
     n = len(genome_np)
@@ -100,23 +117,17 @@ def stack_sharded_index(sidx, genome_np: np.ndarray,
     if has_lut:
         stacked["lut_lo"] = np.stack([np.asarray(l[0]) for l in luts])
         stacked["lut_hi"] = np.stack([np.asarray(l[1]) for l in luts])
-    has_gwords = bool(use_pallas)
-    if has_gwords:
-        stacked["gwords"] = pad_stack(
-            [pack_genome_words(gp[st : st + ln])
-             for st, ln in zip(starts, lengths)])
     ssa_k = int(getattr(ssas[0], "k", 0) or 0)
-    return stacked, ssa_k, has_lut, has_gwords
+    return stacked, ssa_k, has_lut
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "use_pallas", "mesh", "ssa_k", "has_lut",
-                     "has_gwords", "has_fm2"),
+    static_argnames=("params", "mesh", "ssa_k", "has_lut", "has_fm2"),
 )
 def mesh_map_batch(stacked, reads, lens, quals, *, params: MapperParams,
-                   use_pallas: bool, mesh: Mesh, ssa_k: int,
-                   has_lut: bool, has_gwords: bool, has_fm2: bool = False):
+                   mesh: Mesh, ssa_k: int,
+                   has_lut: bool, has_fm2: bool = False):
     """SE forward + traceback walk with one index shard per device.
 
     Output contract == ShardedMapper._dispatch_chunk's (fwd with
@@ -133,11 +144,10 @@ def mesh_map_batch(stacked, reads, lens, quals, *, params: MapperParams,
         s = jax.lax.axis_index("shard")
         # per-device 2-step index over the LOCAL shard (mono-marked
         # SSA -> locate2_mono walk), derived in place at init
-        fm, ssa, g, lut, gw, fm2 = _local_index(
-            stk, ssa_k, has_lut, has_gwords, has_fm2)
+        fm, ssa, g, lut, fm2 = _local_index(
+            stk, ssa_k, has_lut, has_fm2)
         c = candidate_stage(fm, ssa, g, reads, lens, quals,
-                            params=params, use_pallas=use_pallas,
-                            lut=lut, gwords=gw, fm2=fm2)
+                            params=params, lut=lut, fm2=fm2)
         ws = c["win_start"]
         sc = jnp.where((ws >= stk["own_lo"][0]) & (ws < stk["own_hi"][0]),
                        c["score"], NEG_INF)
@@ -159,7 +169,7 @@ def mesh_map_batch(stacked, reads, lens, quals, *, params: MapperParams,
         sl = lambda a: jax.lax.dynamic_slice_in_dim(a, s * Rb, Rb, axis=0)
         _res, walk = traceback_walk_windows(
             sl(texts), sl(tlens), sl(reads), sl(lens), sl(quals),
-            sl(fwd["strand"]), params=params, use_pallas=use_pallas)
+            sl(fwd["strand"]), params=params)
         unslice = lambda a: gath(a).reshape((R,) + a.shape[1:])
         walk = {k: unslice(v) for k, v in walk.items()}
         return fwd, walk
@@ -172,8 +182,7 @@ def mesh_map_batch(stacked, reads, lens, quals, *, params: MapperParams,
     )(stacked, reads, lens, quals)
 
 
-def _local_index(stk, ssa_k: int, has_lut: bool, has_gwords: bool,
-                 has_fm2: bool):
+def _local_index(stk, ssa_k: int, has_lut: bool, has_fm2: bool):
     """Per-device index views over this device's stacked slice
     (leading shard axis stripped; shared by the SE/PE/--all bodies)."""
     fm = FMIndex(stk["bwt_words"][0], stk["occ_abs"][0],
@@ -184,11 +193,10 @@ def _local_index(stk, ssa_k: int, has_lut: bool, has_gwords: bool,
               stk["vals"][0], k=ssa_k)
     g = stk["g"][0]
     lut = (stk["lut_lo"][0], stk["lut_hi"][0]) if has_lut else None
-    gw = stk["gwords"][0] if has_gwords else None
     fm2 = (FM2(stk["p2_words"][0], stk["p2_abs"][0],
                stk["p2_sub"][0], stk["C2"][0], stk["row_a"][0],
                stk["row_b"][0]) if has_fm2 else None)
-    return fm, ssa, g, lut, gw, fm2
+    return fm, ssa, g, lut, fm2
 
 
 def _winner_windows(g, n, win_start, shard, mine_axis, LT):
@@ -214,13 +222,11 @@ _PE_MATE_KEYS = ("se_best", "se_second", "se_strand", "se_ws",
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "use_pallas", "mesh", "ssa_k", "has_lut",
-                     "has_gwords", "has_fm2"),
+    static_argnames=("params", "mesh", "ssa_k", "has_lut", "has_fm2"),
 )
 def mesh_pe_map_batch(stacked, rel, r1, l1, q1, r2, l2, q2, *,
-                      params: MapperParams, use_pallas: bool, mesh: Mesh,
-                      ssa_k: int, has_lut: bool, has_gwords: bool,
-                      has_fm2: bool = False):
+                      params: MapperParams, mesh: Mesh, ssa_k: int,
+                      has_lut: bool, has_fm2: bool = False):
     """Paired-end forward + per-mate traceback walk, one index shard
     per device (the PE leg of the shard-per-chip layout, SURVEY.md
     §3.8/§5.8).
@@ -244,12 +250,12 @@ def mesh_pe_map_batch(stacked, rel, r1, l1, q1, r2, l2, q2, *,
 
     def body(stk, rel, r1, l1, q1, r2, l2, q2):
         s = jax.lax.axis_index("shard")
-        fm, ssa, g, lut, gw, fm2 = _local_index(
-            stk, ssa_k, has_lut, has_gwords, has_fm2)
+        fm, ssa, g, lut, fm2 = _local_index(
+            stk, ssa_k, has_lut, has_fm2)
         m1, m2, pair = pe_map_batch(
             fm, ssa, g, r1, l1, q1, r2, l2, q2,
-            params=params, use_pallas=use_pallas, lut=lut, gwords=gw,
-            fm2=fm2, span=(stk["own_lo"][0], stk["own_hi"][0]))
+            params=params, lut=lut, fm2=fm2,
+            span=(stk["own_lo"][0], stk["own_hi"][0]))
 
         gath = lambda a: jax.lax.all_gather(a, "shard")
         st1 = {k: gath(m1[k]) for k in _PE_MATE_KEYS}
@@ -268,8 +274,7 @@ def mesh_pe_map_batch(stacked, rel, r1, l1, q1, r2, l2, q2, *,
                 a, s * Rb, Rb, axis=0)
             _res, walk = traceback_walk_windows(
                 sl(texts), sl(tlens), sl(reads), sl(lens), sl(quals),
-                sl(mate["strand"]), params=params,
-                use_pallas=use_pallas)
+                sl(mate["strand"]), params=params)
             unslice = lambda a: gath(a).reshape((R,) + a.shape[1:])
             return {k: unslice(v) for k, v in walk.items()}
 
@@ -287,13 +292,12 @@ def mesh_pe_map_batch(stacked, rel, r1, l1, q1, r2, l2, q2, *,
 
 @functools.partial(
     jax.jit,
-    static_argnames=("params", "use_pallas", "mesh", "ssa_k", "has_lut",
-                     "has_gwords", "has_fm2", "k"),
+    static_argnames=("params", "mesh", "ssa_k", "has_lut", "has_fm2", "k"),
 )
 def mesh_map_all_batch(stacked, reads, lens, quals, *,
-                       params: MapperParams, use_pallas: bool,
+                       params: MapperParams,
                        mesh: Mesh, ssa_k: int, has_lut: bool,
-                       has_gwords: bool, has_fm2: bool = False,
+                       has_fm2: bool = False,
                        k: int = 8):
     """--all forward + per-slot walk with one index shard per device.
 
@@ -315,11 +319,10 @@ def mesh_map_all_batch(stacked, reads, lens, quals, *,
 
     def body(stk, reads, lens, quals):
         s = jax.lax.axis_index("shard")
-        fm, ssa, g, lut, gw, fm2 = _local_index(
-            stk, ssa_k, has_lut, has_gwords, has_fm2)
+        fm, ssa, g, lut, fm2 = _local_index(
+            stk, ssa_k, has_lut, has_fm2)
         c = candidate_stage(fm, ssa, g, reads, lens, quals,
-                            params=params, use_pallas=use_pallas,
-                            lut=lut, gwords=gw, fm2=fm2)
+                            params=params, lut=lut, fm2=fm2)
         ws = c["win_start"]
         sc = jnp.where((ws >= stk["own_lo"][0]) & (ws < stk["own_hi"][0]),
                        c["score"], NEG_INF)
@@ -355,8 +358,7 @@ def mesh_map_all_batch(stacked, reads, lens, quals, *,
         _res, walk = traceback_walk_windows(
             sl(texts), sl(tlens), sl(repK(reads)),
             sl(jnp.repeat(lens, K)), sl(repK(quals)),
-            sl(fwd["strand"].reshape(RK)), params=params,
-            use_pallas=use_pallas)
+            sl(fwd["strand"].reshape(RK)), params=params)
         unslice = lambda a: gath(a).reshape((RK,) + a.shape[1:])
         walk = {kk: unslice(v) for kk, v in walk.items()}
         return fwd, walk
@@ -378,11 +380,11 @@ class MeshShardedMapper(ShardedMapper):
     """
 
     def __init__(self, sidx, genome_symbols, params=MapperParams(),
-                 ref_name="ref", use_pallas=None, contigs=None,
+                 ref_name="ref", contigs=None,
                  mesh: Mesh | None = None):
         super().__init__(sidx, genome_symbols, params=params,
-                         ref_name=ref_name, use_pallas=use_pallas,
-                         contigs=contigs, device_state=False)
+                         ref_name=ref_name, contigs=contigs,
+                         device_state=False)
         S = len(sidx.shards)
         if mesh is None:
             devs = jax.devices()
@@ -399,9 +401,9 @@ class MeshShardedMapper(ShardedMapper):
                 f"batch_size {self.params.batch_size} must divide by "
                 f"the {S}-device mesh (traceback is read-sharded)")
         self.mesh = mesh
-        stacked, self._ssa_k, self._has_lut, self._has_gwords = \
+        stacked, self._ssa_k, self._has_lut = \
             stack_sharded_index(sidx, np.asarray(genome_symbols),
-                                self.params, self.use_pallas)
+                                self.params)
         sh = NamedSharding(mesh, P("shard"))
         devs = list(mesh.devices.flat)
         # place each shard's slice DIRECTLY on its device (one upload),
@@ -421,6 +423,7 @@ class MeshShardedMapper(ShardedMapper):
         # pair-BWT, which the sequential single-chip path can only
         # stream
         self._has_fm2 = bool(self.params.use_fm2)
+        self.device_bytes = min(device_bytes_limit(d) for d in devs)
         self._check_hbm_budget()  # BEFORE the fm2 derivation allocates
         if self._has_fm2:
             self._stacked.update(self._stack_fm2(per_shard, sh))
@@ -436,9 +439,6 @@ class MeshShardedMapper(ShardedMapper):
         self._stacked["fused"] = jax.make_array_from_single_device_arrays(
             (len(fpieces),) + fpieces[0].shape[1:], sh, fpieces)
 
-    #: per-device HBM assumed when the backend reports no limit
-    #: (v5e = 16 GB); override via attribute for other chips
-    HBM_BYTES = 16 << 30
     #: fraction reserved for XLA scratch/fragmentation
     HBM_RESERVE = 0.15
 
@@ -446,15 +446,15 @@ class MeshShardedMapper(ShardedMapper):
         """Per-device HBM budget model for the shard-per-chip layout.
 
         Resident = this device's slice of every stacked index array
-        (BWT words, blocked occ, SSA marks/vals, genome slice + packed
-        words, LUT) + the derived pair-BWT (~3 B per BWT row: packed
-        pair words 0.5 B + int8 sub-block occ 1 B + absolute counts
-        1.5 B at the fm2 block geometry).  Transient = the dominant
+        (BWT words, blocked occ, SSA marks/vals, genome slice, LUT) +
+        the derived pair-BWT (~3 B per BWT row: packed pair words
+        0.5 B + int8 sub-block occ 1 B + absolute counts 1.5 B at the
+        fm2 block geometry).  Transient = the dominant
         per-batch arrays: seed/locate matrices at (2R, max_locate*CAP),
         extension windows at (2R*C, L + LT), the traceback direction
         matrix at (R, Lp*(band+1)), and the all_gather-ed candidate
         stacks at (S, R, 2C).  Returns a dict of named byte counts;
-        ``total`` must fit under HBM_BYTES * (1 - HBM_RESERVE) —
+        ``total`` must fit under device_bytes * (1 - HBM_RESERVE) —
         checked at init (SURVEY.md §5.8; VERDICT r2 weak #7).
         """
         p = self.params
@@ -492,7 +492,7 @@ class MeshShardedMapper(ShardedMapper):
             "transient_batch": sum(transient.values()),
             "detail": {**resident, **transient},
             "total": total,
-            "limit": int(self.HBM_BYTES * (1 - self.HBM_RESERVE)),
+            "limit": int(self.device_bytes * (1 - self.HBM_RESERVE)),
         }
 
     def _check_hbm_budget(self):
@@ -507,7 +507,7 @@ class MeshShardedMapper(ShardedMapper):
                 f"per-device HBM budget exceeded: "
                 f"{b['total'] / 2**30:.2f} GiB needed, "
                 f"{b['limit'] / 2**30:.2f} GiB available "
-                f"(HBM {self.HBM_BYTES / 2**30:.0f} GiB - "
+                f"(device {self.device_bytes / 2**30:.0f} GiB - "
                 f"{self.HBM_RESERVE:.0%} reserve):\n{rows}\n"
                 "remedies: more shards (smaller slices per chip), "
                 "use_fm2=False, or a smaller batch_size")
@@ -548,9 +548,8 @@ class MeshShardedMapper(ShardedMapper):
             self._stacked, jnp.asarray(seqs),
             jnp.asarray(lens.astype(np.int32)),
             jnp.asarray(quals.astype(np.uint8)),
-            params=params, use_pallas=self.use_pallas,
-            mesh=self.mesh, ssa_k=self._ssa_k, has_lut=self._has_lut,
-            has_gwords=self._has_gwords, has_fm2=self._has_fm2)
+            params=params, mesh=self.mesh, ssa_k=self._ssa_k,
+            has_lut=self._has_lut, has_fm2=self._has_fm2)
         return (seqs, lens, quals, fwd, walk, R)
 
     def _map_chunk_all(self, seqs, lens, quals, k):
@@ -564,9 +563,9 @@ class MeshShardedMapper(ShardedMapper):
             self._stacked, jnp.asarray(seqs),
             jnp.asarray(lens.astype(np.int32)),
             jnp.asarray(quals.astype(np.uint8)),
-            params=self.params, use_pallas=self.use_pallas,
-            mesh=self.mesh, ssa_k=self._ssa_k, has_lut=self._has_lut,
-            has_gwords=self._has_gwords, has_fm2=self._has_fm2, k=k)
+            params=self.params, mesh=self.mesh, ssa_k=self._ssa_k,
+            has_lut=self._has_lut,
+            has_fm2=self._has_fm2, k=k)
         K = fwd["score"].shape[1]
         shard = np.asarray(fwd["shard"]).reshape(-1)
         starts = np.asarray([s["start"] for s in self.shard_state],
@@ -601,9 +600,9 @@ class MeshPairedShardedMapper(MeshShardedMapper, PairedShardedMapper):
         (s1p, l1p, q1p), (s2p, l2p, q2p), args = staged
         g1, g2, pr, w1, w2 = mesh_pe_map_batch(
             self._stacked, self._rel, *args,
-            params=self.params, use_pallas=self.use_pallas,
-            mesh=self.mesh, ssa_k=self._ssa_k, has_lut=self._has_lut,
-            has_gwords=self._has_gwords, has_fm2=self._has_fm2)
+            params=self.params, mesh=self.mesh, ssa_k=self._ssa_k,
+            has_lut=self._has_lut,
+            has_fm2=self._has_fm2)
         walks = [(g1, w1), (g2, w2)]
         return ((s1p, l1p, q1p), (s2p, l2p, q2p), walks, pr, R)
 

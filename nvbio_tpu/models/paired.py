@@ -4,7 +4,7 @@ Ref parity: the paired pipeline inside
 nvBowtie/bowtie2/cuda/best_approx_inl.h — concordant candidate pairing
 by insert size, opposite-mate window rescue (``score_opposite`` with
 ``BestColumnSink``, ref: score_inl.h), discordant fallback, and pair
-MAPQ.  TPU re-design: both mates run the shared ``candidate_stage``,
+MAPQ.  Fixed-shape re-design: both mates run the shared ``candidate_stage``,
 pairing is a dense (2C x 2C) score matrix per read pair (tiny: C is
 16), and mate rescue is one wide-band semi-global DP over the insert
 window — full-matrix search expressed in the same banded kernel.
@@ -27,9 +27,8 @@ import jax.numpy as jnp
 
 import math
 
-from ..alignment import banded_score_batch
 from ..alignment.types import AlignmentType, NEG_INF
-from ..ops.banded_dp import banded_score_pallas
+from ..ops.banded_dp import banded_score
 from .params import MapperParams
 from .mapper import (
     candidate_stage,
@@ -63,7 +62,7 @@ def _se_reduce(c, lens, params, span=None):
     bi = jnp.argmax(sc, axis=1)
     best = jnp.take_along_axis(sc, bi[:, None], axis=1)[:, 0]
     cols_m = jnp.arange(sc.shape[1], dtype=jnp.int32)
-    second = jnp.max(  # mask-by-compare: TPU row scatters serialize
+    second = jnp.max(  # mask-by-compare: no scatter
         jnp.where(cols_m[None, :] == bi[:, None], NEG_INF, sc), axis=1)
     smin = _score_min(lens, params)
     take = lambda a: jnp.take_along_axis(a, bi[:, None], axis=1)[:, 0]
@@ -80,10 +79,9 @@ def _se_reduce(c, lens, params, span=None):
 
 def _chunk_plan(L: int, LT: int, params):
     """Static plan for chunked window rescue: cover the insert window
-    with overlapping band-63 sub-windows on the fast narrow-band Pallas
-    kernel instead of one window-wide band (which maps poorly to the
-    sublane axis — measured slower than the XLA twin past ~500
-    diagonals).
+    with overlapping band-63 sub-windows instead of one window-wide
+    band, so the DP work grows with a chunk's band (127 cells), not
+    with the whole insert window (2 * rescue_w + 1 cells).
 
     Exactness: an alignment reported by rescue must score >= score-min,
     which bounds its total gap extension T <= (perfect - smin - go)/ge.
@@ -120,12 +118,10 @@ def _chunk_plan(L: int, LT: int, params):
     return w_c, CW, origins
 
 
-def _chunked_window_score(pats, lens, texts, tlens, quals, params, plan,
-                          use_pallas=True, interpret=False):
+def _chunked_window_score(pats, lens, texts, tlens, quals, params, plan):
     """Window-wide best semi-global alignment via overlapping
-    narrow-band chunks (see _chunk_plan).  Runs on the Pallas kernel or
-    its XLA twin — both engines share the chunk plan, so CPU and TPU
-    rescues are bit-identical (window-edge clipping included)."""
+    narrow-band chunks (see _chunk_plan), on the engine
+    ``ops.select_banded_dp`` picks for the chunk band."""
     R, L = pats.shape
     LT = texts.shape[1]
     w_c, CW, origins = plan
@@ -141,17 +137,10 @@ def _chunked_window_score(pats, lens, texts, tlens, quals, params, plan,
     ).reshape(R * C, CW)
     tlc = jnp.clip(tlens[:, None] - bs[None, :], 0, CW).reshape(R * C)
     rep = lambda a: jnp.repeat(a, C, axis=0)
-    if use_pallas:
-        res = banded_score_pallas(
-            rep(pats), rep(lens), tc, tlc, rep(quals),
-            scheme=params.scheme, atype=params.atype, band_w=w_c,
-            interpret=interpret,
-        )
-    else:
-        res = banded_score_batch(
-            rep(pats), rep(lens), tc, tlc, rep(quals),
-            scheme=params.scheme, atype=params.atype, band_w=w_c,
-        )
+    res = banded_score(
+        rep(pats), rep(lens), tc, tlc, rep(quals),
+        scheme=params.scheme, atype=params.atype, band_w=w_c,
+    )
     sc = res["score"].reshape(R, C)
     te = (res["t_end"].reshape(R, C) + bs[None, :])
     best = jnp.max(sc, axis=1)
@@ -215,8 +204,7 @@ def _pair_cases(params: MapperParams, p1, e1, st1, p2, e2, st2):
 
 
 def _rescue(genome, n, anchor_ws, anchor_strand, anchor_len, mate_reads,
-            mate_lens, mate_quals, params, use_pallas,
-            mate_is_2: bool = True):
+            mate_lens, mate_quals, params, mate_is_2: bool = True):
     """Opposite-mate window search: semi-global DP of the mate (in the
     orientation implied by params.pe_orient) over the insert window of
     the anchor (ref: score_inl.h ``score_opposite`` + params.cpp
@@ -258,18 +246,14 @@ def _rescue(genome, n, anchor_ws, anchor_strand, anchor_len, mate_reads,
     texts = genome[gidx]
     tlens = jnp.clip(n - win_start, 0, LT)
     # the rescue window (maxins+2W of start positions) is covered with
-    # overlapping narrow-band chunks on both engines (see _chunk_plan)
-    # so CPU and TPU rescues are bit-identical and the hot path rides
-    # the Pallas kernel; window-wide band only when no plan (LOCAL)
+    # overlapping narrow-band chunks (see _chunk_plan); window-wide
+    # band only when no plan (LOCAL)
     plan = _chunk_plan(L, LT, params)
     if plan is not None:
         res = _chunked_window_score(pats, mate_lens, texts, tlens,
-                                    pquals, params, plan,
-                                    use_pallas=use_pallas)
+                                    pquals, params, plan)
     else:
-        score_fn = (banded_score_pallas if use_pallas and rescue_w <= 127
-                    else banded_score_batch)
-        res = score_fn(
+        res = banded_score(
             pats, mate_lens, texts, tlens, pquals,
             scheme=params.scheme, atype=params.atype, band_w=rescue_w,
         )
@@ -288,11 +272,10 @@ def _rescue(genome, n, anchor_ws, anchor_strand, anchor_len, mate_reads,
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("params", "use_pallas", "bi"))
+                   static_argnames=("params", "bi"))
 def pe_map_batch(
     fm, ssa, genome, r1, l1, q1, r2, l2, q2, *,
-    params: MapperParams, use_pallas: bool = False, lut=None, span=None,
-    gwords=None, fm2=None, bi: bool = False,
+    params: MapperParams, lut=None, span=None, fm2=None, bi: bool = False,
 ):
     """Paired forward step.  Returns per-mate dicts (aligned, strand,
     win_start, score, mapq, second) + pair-level info (proper,
@@ -312,8 +295,7 @@ def pe_map_batch(
     cc = candidate_stage(
         fm, ssa, genome,
         jnp.concatenate([r1, r2]), jnp.concatenate([l1, l2]),
-        jnp.concatenate([q1, q2]), params=params,
-        use_pallas=use_pallas, lut=lut, gwords=gwords, fm2=fm2, bi=bi)
+        jnp.concatenate([q1, q2]), params=params, lut=lut, fm2=fm2, bi=bi)
     split = lambda v: (v[:R], v[R:]) if getattr(v, "ndim", 0) else (v, v)
     c1 = {k: split(v)[0] for k, v in cc.items()}
     c2 = {k: split(v)[1] for k, v in cc.items()}
@@ -392,11 +374,9 @@ def pe_map_batch(
         g = lambda a: a[gi]
 
         r2c = _rescue(genome, n, g(an1["win_start"]), g(an1["strand"]),
-                      g(l1), g(r2), g(l2), g(q2), params, use_pallas,
-                      mate_is_2=True)
+                      g(l1), g(r2), g(l2), g(q2), params, mate_is_2=True)
         r1c = _rescue(genome, n, g(an2["win_start"]), g(an2["strand"]),
-                      g(l2), g(r1), g(l1), g(q1), params, use_pallas,
-                      mate_is_2=False)
+                      g(l2), g(r1), g(l1), g(q1), params, mate_is_2=False)
 
         def scat(vals, fill):
             out = jnp.full((R + 1,), fill, vals.dtype)
@@ -638,8 +618,7 @@ class PairedMapper(Mapper):
             s1, l1, q1, s2, l2, q2)
         m1, m2, pair = pe_map_batch(
             self.fm, self.ssa, self.genome, *args,
-            params=params, use_pallas=self.use_pallas, lut=self.lut,
-            gwords=self.gwords, fm2=self.fm2, bi=self.bi,
+            params=params, lut=self.lut, fm2=self.fm2, bi=self.bi,
         )
         nj = jnp.asarray(self.n, jnp.int32)
         walks = []
@@ -650,7 +629,7 @@ class PairedMapper(Mapper):
                 jnp.asarray(lp.astype(np.int32)),
                 jnp.asarray(qp.astype(np.uint8)),
                 mate["win_start"], mate["strand"], params=params,
-                use_pallas=self.use_pallas, active=mate["aligned"],
+                active=mate["aligned"],
             )
             walks.append((mate, res, walk))
         return ((s1p, l1p, q1p), (s2p, l2p, q2p), walks, pair, R)

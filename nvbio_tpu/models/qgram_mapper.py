@@ -8,9 +8,8 @@ diagonal-binned hits), then candidates flow through the same extension
 (models/mapper.py ``extend_candidates``/``top2_finish``).
 
 Hash seeding trades the FM-index's O(L) LF-gather chain per seed for a
-single binary search per q-gram — fewer dependent gathers (TPU-
-friendlier) at the cost of index size (one int64+int32 per genome
-position).
+single binary search per q-gram — fewer dependent gathers at the
+cost of index size (one int64+int32 per genome position).
 """
 
 from __future__ import annotations
@@ -28,8 +27,7 @@ from .params import MapperParams
 
 
 @functools.partial(
-    jax.jit, static_argnames=("q", "stride", "max_hits", "params",
-                              "use_pallas"))
+    jax.jit, static_argnames=("q", "stride", "max_hits", "params"))
 def qgram_map_batch(
     fm: FMIndex,
     qidx: QGramIndex,
@@ -42,8 +40,6 @@ def qgram_map_batch(
     stride: int,
     max_hits: int,
     params: MapperParams,
-    use_pallas: bool = False,
-    gwords=None,
 ):
     """Forward q-gram mapping step; same output contract as
     ``mapper.map_batch``."""
@@ -76,8 +72,7 @@ def qgram_map_batch(
 
     cands = extend_candidates(
         fm, genome, all_reads, all_quals, lens2, cand,
-        params=params, use_pallas=use_pallas, gwords=gwords,
-    )
+        params=params)
     return top2_finish(cands, lens, params)
 
 
@@ -101,6 +96,4 @@ class QGramMapper(Mapper):
         return qgram_map_batch(
             self.fm, self.qidx, self.genome, jr, jl, jq,
             q=self.q, stride=self.stride, max_hits=self.max_hits,
-            params=params or self.params, use_pallas=self.use_pallas,
-            gwords=self.gwords,
-        )
+            params=params or self.params)

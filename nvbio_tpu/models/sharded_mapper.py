@@ -12,10 +12,10 @@ reduction picks best/second; traceback runs per shard and the winner's
 op stream is selected on the host.  Positions globalize (start +
 local) only on the host, in int64.
 
-This is also the single-chip rehearsal of the ICI index-sharding
-layout (SURVEY.md §5.8): on a mesh, each shard lives on its own chip
-with the read batch broadcast, and the same reduction runs as a
-`jax.lax.pmax`-style tree.
+This is also the single-device schedule of the index-sharding layout
+(SURVEY.md §5.8): on a mesh (models/mesh_sharded.py), each shard lives
+on its own device with the read batch broadcast, and the same
+reduction runs as a `jax.lax.pmax`-style tree.
 """
 
 from __future__ import annotations
@@ -30,14 +30,14 @@ from ..alignment.types import NEG_INF
 from .mapper import (Mapper, MapResult, candidate_stage,
                      traceback_walk_windows, _score_min, _score_perfect,
                      PAD)
-from ..ops.banded_dp import pack_genome_words, window_slices
+from ..alignment.batched import window_slices
 from .mapq import mapq_v2
 from .params import MapperParams
 
 
-@functools.partial(jax.jit, static_argnames=("params", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("params",))
 def _sharded_walk(gs, lengths, ws, shard, reads, lens, quals, strand, *,
-                  params: MapperParams, use_pallas: bool = False):
+                  params: MapperParams):
     """Winner-shard traceback in ONE walk: gather each lane's window
     text from its winning shard's slice (S cheap gathers + selects),
     then run a single winners-only DP + walk — instead of S full DP
@@ -56,20 +56,18 @@ def _sharded_walk(gs, lengths, ws, shard, reads, lens, quals, strand, *,
             texts = jnp.where(m[:, None], t_s, texts)
             tlens = jnp.where(m, tl_s, tlens)
     return traceback_walk_windows(texts, tlens, reads, lens, quals,
-                                  strand, params=params,
-                                  use_pallas=use_pallas)
+                                  strand, params=params)
 
 
-@functools.partial(jax.jit, static_argnames=("params", "use_pallas", "k"))
+@functools.partial(jax.jit, static_argnames=("params", "k"))
 def _shard_all(fm, ssa, genome_s, reads, lens, quals, lo, hi, *,
-               params: MapperParams, use_pallas=False, k=8, lut=None,
-               gwords=None, fm2=None):
+               params: MapperParams, k=8, lut=None, fm2=None):
     """Per-shard top-k candidates for --all mode (ownership-masked)."""
     C = params.max_candidates
     k = min(k, 2 * C)
     c = candidate_stage(fm, ssa, genome_s, reads, lens, quals,
-                        params=params, use_pallas=use_pallas, lut=lut,
-                        gwords=gwords, fm2=fm2)
+                        params=params, lut=lut,
+                        fm2=fm2)
     ws = c["win_start"]
     sc = jnp.where((ws >= lo) & (ws < hi), c["score"], NEG_INF)
     order = jnp.argsort(-sc, axis=1)[:, :k]
@@ -104,13 +102,12 @@ def _sharded_all_merge(per_shard, lens, params: MapperParams, k=8):
     }
 
 
-@functools.partial(jax.jit, static_argnames=("params", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("params",))
 def _shard_cands(fm, ssa, genome_s, reads, lens, quals, lo, hi, *,
-                 params: MapperParams, use_pallas=False, lut=None,
-                 gwords=None, fm2=None, pre=None):
+                 params: MapperParams, lut=None, fm2=None, pre=None):
     c = candidate_stage(fm, ssa, genome_s, reads, lens, quals,
-                        params=params, use_pallas=use_pallas, lut=lut,
-                        gwords=gwords, fm2=fm2, pre=pre)
+                        params=params, lut=lut,
+                        fm2=fm2, pre=pre)
     # ownership interval [lo, hi): alignments starting in the overlap
     # tail belong to the next shard, and window origins clamped to the
     # shard's left edge (local 0, non-first shards) are clipped
@@ -151,7 +148,7 @@ def _top2_concat(sc, ws, te, pe, lens, params: MapperParams):
     bi = jnp.argmax(sc, axis=1)
     best = jnp.take_along_axis(sc, bi[:, None], axis=1)[:, 0]
     cols_m = jnp.arange(sc.shape[1], dtype=jnp.int32)
-    second = jnp.max(  # mask-by-compare: TPU row scatters serialize
+    second = jnp.max(  # mask-by-compare: no scatter
         jnp.where(cols_m[None, :] == bi[:, None], NEG_INF, sc), axis=1)
     has_second = second > NEG_INF // 2
     smin = _score_min(lens, params)
@@ -304,8 +301,8 @@ class ShardedMapper(Mapper):
 
     def __init__(self, sidx, genome_symbols: np.ndarray,
                  params: MapperParams = MapperParams(),
-                 ref_name: str = "ref", use_pallas: bool | None = None,
-                 contigs: dict | None = None, device_state: bool = True,
+                 ref_name: str = "ref", contigs: dict | None = None,
+                 device_state: bool = True,
                  fm2_mode: str = "auto", fuse: bool = True):
         ssa_k = int(getattr(sidx.shards[0][1], "k", 0) or 0)
         if ssa_k and params.sa_sample != ssa_k:
@@ -325,9 +322,6 @@ class ShardedMapper(Mapper):
         self.locate_dropped = 0
         self.escalated = 0  # re-maps performed by escalation rounds
         self.overflowed = 0  # reads whose round-1 budgets overflowed
-        if use_pallas is None:
-            use_pallas = jax.default_backend() not in ("cpu",)
-        self.use_pallas = use_pallas
         self.lut = None
         # per-shard device state: genome slice (+pad) and index
         # (device_state=False: metadata only — MeshShardedMapper keeps
@@ -335,24 +329,21 @@ class ShardedMapper(Mapper):
         from ..fmindex.index import fuse_occ
         self.shard_state = []
         for (fm, ssa, lut, start, length) in sidx.shards:
-            g_s = gw_s = None
+            g_s = None
             if device_state:
                 g_s = jnp.asarray(gp[start : start + length + lt_pad])
-                gw_s = (pack_genome_words(gp[start : start + length])
-                        if self.use_pallas else None)
                 if fuse and getattr(fm, "fused", None) is None:
                     # fused block rows: 1 gather per rank/LF
                     # (index.py).  fuse=False trades the +0.6 B/bp
-                    # away when HBM is tight (e.g. one 1.6 Gbp shard
-                    # + resident pair-BWT on a 16 GB chip: fm2's
-                    # rank2 dominates there and is not fused anyway)
+                    # away when device memory is tight (fm2's rank2
+                    # is not fused, so a resident pair-BWT dominates)
                     fm = fuse_occ(fm)
             self.shard_state.append(dict(
                 fm=fm if device_state else None,
                 ssa=ssa if device_state else None,
                 lut=lut if device_state else None,
                 start=start, length=length,
-                g=g_s, gw=gw_s,
+                g=g_s,
             ))
         # owned span of shard i = next shard's start - this start (or
         # n - start for the last)
@@ -412,8 +403,7 @@ class ShardedMapper(Mapper):
             _shard_cands(st["fm"], st["ssa"], st["g"], jr, jl, jq,
                          jnp.asarray(st["own_lo"], jnp.int32),
                          jnp.asarray(st["own_hi"], jnp.int32),
-                         params=params, use_pallas=self.use_pallas,
-                         lut=st["lut"], gwords=st["gw"], fm2=st["fm2"],
+                         params=params, lut=st["lut"], fm2=st["fm2"],
                          pre=pre)
             for st in self.shard_state
         ]
@@ -421,8 +411,7 @@ class ShardedMapper(Mapper):
         res, walk = _sharded_walk(
             self._gs, self._glens, fwd["win_start"], fwd["shard"],
             jr, jl, jq, fwd["strand"], params=params,
-            use_pallas=self.use_pallas,
-        )
+            )
         return (seqs, lens, quals, fwd, walk, R)
 
     def map_stream(self, packed_iter, depth: int = 2):
@@ -449,8 +438,9 @@ class ShardedMapper(Mapper):
         (host) before any output appears — a crash mid-run resumes
         from nothing — and per-chunk candidate dicts (~a few MB each)
         ride host RAM between phases.  The reference has no analog:
-        its GPU held one whole-genome index (SURVEY.md §3.3); this is
-        the TPU-native answer to hg-scale 2-step indexes on one chip.
+        its GPU held one whole-genome index (SURVEY.md §3.3); this
+        bounds the device memory of hg-scale 2-step indexes on one
+        device.
         """
         from ..fmindex import build_fm2_device
 
@@ -479,8 +469,7 @@ class ShardedMapper(Mapper):
                     jnp.asarray(cq.astype(np.uint8)),
                     jnp.asarray(st["own_lo"], jnp.int32),
                     jnp.asarray(st["own_hi"], jnp.int32),
-                    params=self.params, use_pallas=self.use_pallas,
-                    lut=st["lut"], gwords=st["gw"], fm2=fm2_s)
+                    params=self.params, lut=st["lut"], fm2=fm2_s)
                 for cs, cl, cq, _r in chunks
             ]
             for ci, h in enumerate(handles):
@@ -498,7 +487,7 @@ class ShardedMapper(Mapper):
                 res, walk = _sharded_walk(
                     self._gs, self._glens, fwd["win_start"],
                     fwd["shard"], jr, jl, jq, fwd["strand"],
-                    params=self.params, use_pallas=self.use_pallas)
+                    params=self.params)
                 results.extend(self._collect_chunk(
                     (cs, cl, cq, fwd, walk, live)))
             yield names, seqs, lens, quals, results
@@ -572,8 +561,7 @@ class ShardedMapper(Mapper):
             _shard_all(st["fm"], st["ssa"], st["g"], jr, jl, jq,
                        jnp.asarray(st["own_lo"], jnp.int32),
                        jnp.asarray(st["own_hi"], jnp.int32),
-                       params=self.params, use_pallas=self.use_pallas,
-                       k=k, lut=st["lut"], gwords=st["gw"],
+                       params=self.params, k=k, lut=st["lut"],
                        fm2=st["fm2"])
             for st in self.shard_state
         ]
@@ -585,8 +573,7 @@ class ShardedMapper(Mapper):
         res, walk = _sharded_walk(
             self._gs, self._glens, ws_flat, fwd["shard"].reshape(-1),
             rep(jr), jnp.repeat(jl, K), rep(jq), st_flat,
-            params=self.params, use_pallas=self.use_pallas,
-        )
+            params=self.params)
         shard = np.asarray(fwd["shard"]).reshape(-1)
         starts = np.asarray([s["start"] for s in self.shard_state],
                             np.int64)
@@ -643,8 +630,7 @@ class PairedShardedMapper(ShardedMapper):
         from .paired import pe_map_batch
         return pe_map_batch(
             st["fm"], st["ssa"], st["g"], *args,
-            params=self.params, use_pallas=self.use_pallas,
-            lut=st["lut"], gwords=st["gw"], fm2=fm2,
+            params=self.params, lut=st["lut"], fm2=fm2,
             span=(jnp.asarray(st["own_lo"], jnp.int32),
                   jnp.asarray(st["own_hi"], jnp.int32)),
         )
@@ -660,8 +646,7 @@ class PairedShardedMapper(ShardedMapper):
                 self._gs, self._glens, mate["win_start"], mate["shard"],
                 jnp.asarray(sp), jnp.asarray(lp.astype(np.int32)),
                 jnp.asarray(qp.astype(np.uint8)), mate["strand"],
-                params=self.params, use_pallas=self.use_pallas,
-            )
+                params=self.params)
             walks.append((mate, walk))
         return ((s1p, l1p, q1p), (s2p, l2p, q2p), walks, pair, R)
 

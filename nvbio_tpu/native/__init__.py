@@ -1,14 +1,17 @@
 """Native host layer: lazy-built C++ fast paths with Python fallbacks.
 
-``lib()`` compiles ``fastio.cpp`` with g++ on first use (cached .so in
-the package dir) and returns the ctypes handle, or None when no
-toolchain is available — callers must fall back to the pure-Python
-implementations.
+``lib()`` compiles ``fastio.cpp`` with g++ on first use and returns the
+ctypes handle, or None when no toolchain is available — callers must
+fall back to the pure-Python implementations.  Each library is built
+from the committed source into ``_<name>.<hash>.so`` in the package dir,
+keyed by a hash of the source and the compiler flags, so a library
+built from other source is never loaded.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -16,24 +19,34 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO = os.path.join(_DIR, "_fastio.so")
 _SRC = os.path.join(_DIR, "fastio.cpp")
 _lock = threading.Lock()
 _lib = None
 _tried = False
-_SAIS_SO = os.path.join(_DIR, "_sais.so")
 _SAIS_SRC = os.path.join(_DIR, "sais.cpp")
 _sais_lib = None
 _sais_tried = False
 
 
-def _build(src, so, *extra):
-    if (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(src)):
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", src, "-o", so, *extra],
-            check=True, capture_output=True,
-        )
+def _so_path(src, flags) -> str:
+    """``_<name>.<hash>.so`` beside ``src``: the hash covers the source
+    bytes and the compile flags."""
+    h = hashlib.sha256(open(src, "rb").read())
+    h.update(" ".join(flags).encode())
+    name = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(_DIR, f"_{name}.{h.hexdigest()[:16]}.so")
+
+
+def _build(src, *extra):
+    flags = ["-O3", "-shared", "-fPIC"]
+    so = _so_path(src, flags + list(extra))
+    if not os.path.exists(so):
+        # build beside, then rename: concurrent builders never load a
+        # half-written library
+        tmp = f"{so}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *flags, src, "-o", tmp, *extra],
+                       check=True, capture_output=True)
+        os.replace(tmp, so)
     return ctypes.CDLL(so)
 
 
@@ -45,7 +58,7 @@ def lib():
             return _lib
         _tried = True
         try:
-            L = _build(_SRC, _SO, "-lz")
+            L = _build(_SRC, "-lz")
             L.fastq_parse.restype = ctypes.c_long
             L.fastq_count.restype = ctypes.c_long
             L.bgzf_compress.restype = ctypes.c_long
@@ -75,22 +88,7 @@ def sais_lib():
             return _sais_lib
         _sais_tried = True
         try:
-            _sais_lib = _sais_resolve(_build(_SAIS_SRC, _SAIS_SO))
-        except AttributeError:
-            # A stale _sais.so (e.g. an archive extraction that kept
-            # source mtimes newer than the .so it shipped) can lack the
-            # newer symbols; silently losing the WHOLE native lib would
-            # degrade gigabase builds to the Python fallback.  Rebuild
-            # once from source before giving up.
-            try:
-                os.remove(_SAIS_SO)
-                _sais_lib = _sais_resolve(_build(_SAIS_SRC, _SAIS_SO))
-            except Exception:
-                import warnings
-                warnings.warn(
-                    "nvbio_tpu.native: _sais.so is stale/incomplete and "
-                    "rebuild failed; falling back to Python index build")
-                _sais_lib = None
+            _sais_lib = _sais_resolve(_build(_SAIS_SRC))
         except Exception:
             _sais_lib = None
         return _sais_lib
@@ -299,7 +297,6 @@ def bgzf_compress_native(data: bytes, level: int = 6):
     return out[:w].tobytes()
 
 
-_TB_SO = os.path.join(_DIR, "_traceback.so")
 _TB_SRC = os.path.join(_DIR, "traceback.cpp")
 _tb_lib = None
 _tb_tried = False
@@ -313,7 +310,7 @@ def tb_lib():
             return _tb_lib
         _tb_tried = True
         try:
-            L = _build(_TB_SRC, _TB_SO)
+            L = _build(_TB_SRC)
             L.tb_batch.restype = ctypes.c_long
             L.ops_batch.restype = ctypes.c_long
             _tb_lib = L

@@ -2,7 +2,7 @@
 //
 // Plays the role of the reference's host-native I/O layer (ref:
 // io/sequence/sequence_fastq.cpp FASTQ scanner; contrib zlib + BGZF in
-// output_bam.cpp): the mapper's input path must keep TPUs fed, so the
+// output_bam.cpp): the mapper's input path must keep the device fed, so the
 // byte-level work is C++ (SURVEY.md §7.0).  Exposed through ctypes —
 // plain C ABI, no pybind11 (not available in this image).
 //

@@ -5,8 +5,8 @@
 // with a blockwise difference-cover sort (ref: nvbio/sufsort/sufsort.h
 // cuda::blockwise_suffix_sort, dcs.h, compression_sort.h); that design
 // leans on comparator-based segmented sorts which have no XLA
-// counterpart, so the TPU build uses linear-time induced sorting on the
-// host for beyond-HBM references (this file) and an on-device
+// counterpart, so this build uses linear-time induced sorting on the
+// host for beyond-device-memory references (this file) and an on-device
 // prefix-doubling sort for in-HBM references (sufsort/device.py).
 //
 // Algorithm: Nong, Zhang & Chan, "Two Efficient Algorithms for Linear

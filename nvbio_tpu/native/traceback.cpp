@@ -4,7 +4,7 @@
 // cigar_to_string, make_md_string) byte-for-byte; the Python versions
 // remain the oracle and fallback.  The reference builds these strings
 // in device kernels (ref: nvBowtie/bowtie2/cuda/traceback_inl.h
-// finish_alignment_best, mds.h); on TPU the direction flags come from
+// finish_alignment_best, mds.h); here the direction flags come from
 // the device and the string assembly is host-native, so this loop must
 // not be interpreted Python at 100k+ reads/batch.
 

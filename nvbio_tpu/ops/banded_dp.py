@@ -1,24 +1,32 @@
-"""Pallas TPU kernel: batched banded Gotoh affine-gap DP (score-only).
+"""Banded Gotoh DP on the GPU, and the one place the DP engine is chosen.
 
-The TPU-native replacement for the reference's banded alignment kernels
-(ref: nvbio/alignment/banded_inl.h — ``banded_alignment_score``;
-batched.h — ``BatchedAlignmentScore`` with its thread/warp schedulers).
+The XLA twin (``alignment.batched``) advances one DP row per
+``lax.scan`` step, and every step reads and writes the lanes x band
+state in device memory.  The kernel here follows the reference's
+banded aligners instead (ref: nvbio/alignment/banded_inl.h —
+``banded_alignment_score``; batched.h — one thread per alignment):
 
-Layout (BASELINE.md "wavefront-parallel Pallas DP"):
+- one alignment per lane of a ``BLOCK``-lane program (Pallas
+  ``backend="triton"``);
+- the band's H/F state and the text symbols under it are Python-unrolled
+  lists of ``(BLOCK,)`` vectors, so they live in registers for the whole
+  alignment; the row loop runs inside the kernel, and nothing carries
+  across the grid;
+- the within-row E recurrence is the plain left-to-right
+  ``E[k] = max(A[k], E[k-1] - ge)``, which equals the twin's weighted
+  cumulative max exactly;
+- pattern, quality and text rows are read from ``(seq, batch)``-major
+  staged arrays, so each row is one coalesced load per operand, and the
+  direction flags of a row are stored straight to device memory.
 
-- **batch across the 128 VPU lanes** — one alignment per lane, the TPU
-  analog of one-CUDA-thread-per-alignment;
-- **band across sublanes** — the band H/E/F state lives in VMEM as
-  (BAND, 128) int32 tiles, so every DP row advances with a handful of
-  full-width VPU ops;
-- the within-row horizontal-gap recurrence is an exact weighted
-  cumulative max, computed with a log2(BAND)-step Kogge-Stone scan of
-  sublane shifts;
-- text/pattern/qual tiles are staged (seq_len, 128) in VMEM so each row
-  touches them with uniform dynamic slices — no per-lane gathers.
+Semantics are the twin's, bit for bit: the same int32 recurrences, the
+same masks and the same sink tie-breaks (``tests/test_banded_pallas.py``
+checks them in interpret mode; ``chip_smoke.py`` on the card).
 
-Semantics are identical to ``nvbio_tpu.alignment.batched`` (the XLA
-twin), which is exact-equality tested against the scalar oracle.
+``select_banded_dp`` keys the engine on the backend and the band:
+bands wider than ``TRITON_MAX_BAND_W`` (the PE rescue chunks) and
+substitution-matrix schemes take the twin.  ``banded_score`` and
+``banded_directions`` are the entry points every model calls.
 """
 
 from __future__ import annotations
@@ -27,887 +35,238 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from ..alignment.types import (AlignmentType, GotohScheme, NEG_INF,
-                               gap_penalties)
+from ..alignment.batched import (PAD_SYMBOL, banded_directions_batch,
+                                 banded_score_batch)
+from ..alignment.types import AlignmentType, NEG_INF, gap_penalties
 
-PAD_SYMBOL = 7
-# Sentinel semantics (int32 body): text symbol 7 scores SENT_S against
-# every pattern symbol.  Cells outside the valid (j in [0, tlen]) region
-# therefore decay by ~SENT_S per row from their NEG init and can never
-# re-enter the reachable score range; any output below SCORE_FLOOR is
-# reported as NEG_INF ("no path").  This removes every per-row bounds
-# mask from the hot loop (see _make_kernel32 docstring for the proof
-# sketch).
-SENT_S = 1 << 20
-SCORE_FLOOR = -(1 << 19)
-#: patterns longer than this route to the row-blocked long-read kernel
-#: (ops/long_dp.py); the resident-pattern kernel's VMEM reach
-LONG_THRESHOLD = 512
+#: widest band half-width the register-resident kernel takes: three
+#: band vectors (H, F, text) of 2w+1 int32 values per thread plus the
+#: row's temporaries stay within ~128 registers at w = 16
+TRITON_MAX_BAND_W = 16
+#: alignments per program: one per thread of four warps
+BLOCK = 128
 
 
-def _band_pad(BAND: int) -> int:
-    """Sublane extent of the band state.  Multiple of 8 is all Mosaic
-    needs; the Kogge-Stone scan (steps d = 1,2,4,... < BAND_PAD) is
-    exact for any length, so wide bands (PE insert-window rescue) pay
-    BAND rounded up to 8, not to a power of two."""
-    return max(8, (BAND + 7) // 8 * 8)
+def select_banded_dp(backend: str, band_w: int, scheme=None) -> str:
+    """The banded DP engine for ``backend`` at half-width ``band_w``:
+    ``"triton"`` (the kernel below) or ``"xla"`` (the twin)."""
+    if (backend == "gpu" and band_w <= TRITON_MAX_BAND_W
+            and not hasattr(scheme, "matrix")):
+        return "triton"
+    return "xla"
 
 
-def _auto_tile(BAND_PAD: int, Lp8: int, tile: int,
-               extra_rows: int = 0) -> int:
-    """Shrink the lane tile for wide bands so the VMEM working set
-    (state + staged text, double-buffered inputs, plus `extra_rows`
-    int32-row-equivalents for variant-specific blocks: the packed
-    unpack scratch or the uint8 dirs output) stays under budget."""
-    rows = 7 * BAND_PAD + 3 * Lp8 + BAND_PAD + 16 + extra_rows
-    while tile > 128 and rows * tile * 4 > 8 * 1024 * 1024:
-        tile //= 2
-    if rows * tile * 4 > 8 * 1024 * 1024:
-        raise ValueError(
-            f"banded Pallas kernel working set {rows * tile * 4 / 2**20:.1f}"
-            f" MiB exceeds the 8 MiB VMEM budget even at tile={tile} "
-            f"(band_pad={BAND_PAD}, Lp8={Lp8}); narrow the band / shorten "
-            "the pattern, or use the XLA twin "
-            "(banded_score_batch / banded_directions_batch)")
-    return tile
+def _engine(band_w, scheme) -> str:
+    return select_banded_dp(jax.default_backend(), band_w, scheme)
 
 
-def _hot_precompute(pats_t, quals_t, scheme, Lp8, BAND,
-                    long_ok: bool = False):
-    """Shared wrapper prologue: sentinel-body guards + the pm/mis hot-
-    loop input tiles (pattern N/pad rows -> 9; quality-aware mismatch
-    penalty with pattern-N folded in).  One definition keeps the
-    score, packed and directions paths' scheme semantics in lockstep.
-    ``long_ok``: the caller (ops/long_dp.py) clamps dead cells per row,
-    so the int32 sentinel-drift bound does not apply."""
-    _eo, _ee, _fo, _fe = gap_penalties(scheme)
-    worst = max(_eo, _fo) + (Lp8 + BAND) * max(
-        _ee, _fe, scheme.mismatch_max, scheme.n_penalty,
-        abs(scheme.match))
-    assert worst < -SCORE_FLOOR, (
-        f"scores may cross the sentinel floor (worst={worst}); "
-        "shorten the pattern or band")
-    assert long_ok or Lp8 * (SENT_S + 64) < (1 << 30), \
-        "Lp too long for sentinel body"
-    pm_t = jnp.where(pats_t >= 4, 9, pats_t)
-    mmq = scheme.mismatch_min + (
-        (scheme.mismatch_max - scheme.mismatch_min)
-        * jnp.minimum(quals_t, 40)) // 40
-    mis_t = jnp.where(pats_t >= 4, scheme.n_penalty, mmq)
-    return pm_t, mis_t
+def banded_score(patterns, plens, texts, tlens, quals=None, *, scheme,
+                 atype, band_w):
+    """Score-only banded alignment on the selected engine; the
+    contract of ``alignment.banded_score_batch``."""
+    if _engine(band_w, scheme) == "triton":
+        return banded_score_triton(patterns, plens, texts, tlens, quals,
+                                   scheme=scheme, atype=atype,
+                                   band_w=band_w)
+    return banded_score_batch(patterns, plens, texts, tlens, quals,
+                              scheme=scheme, atype=atype, band_w=band_w)
 
 
-def _shift_down(x, fill=NEG_INF):
-    """out[k] = x[k+1] along sublane axis 0."""
-    return jnp.concatenate(
-        [x[1:, :], jnp.full((1, x.shape[1]), fill, x.dtype)], axis=0
-    )
+def banded_directions(patterns, plens, texts, tlens, quals=None, *,
+                      scheme, atype, band_w):
+    """Sinks plus per-cell direction flags on the selected engine; the
+    contract of ``alignment.banded_directions_batch`` (flags shaped
+    (NB, Lp, 2*band_w+1))."""
+    if _engine(band_w, scheme) == "triton":
+        return banded_directions_triton(
+            patterns, plens, texts, tlens, quals, scheme=scheme,
+            atype=atype, band_w=band_w)
+    return banded_directions_batch(patterns, plens, texts, tlens, quals,
+                                   scheme=scheme, atype=atype,
+                                   band_w=band_w)
 
 
-def _shift_up_by(x, d, fill=NEG_INF):
-    """out[k] = x[k-d] along sublane axis 0."""
-    return jnp.concatenate(
-        [jnp.full((d, x.shape[1]), fill, x.dtype), x[:-d, :]], axis=0
-    )
-
-
-def _make_kernel_masked(Lp: int, scheme: GotohScheme, atype: AlignmentType,
-                        band_w: int, BAND: int, BAND_PAD: int, TB: int,
-                        cd=jnp.int16):
-    """BAND = 2*band_w+1 true band cells; BAND_PAD = pow2-padded sublane
-    extent.  Cells with k >= BAND are masked invalid so padding never
-    changes results.
-
-    ``cd`` is the DP compute dtype.  int16 packs two elements per
-    32-bit VPU lane slot (Mosaic (16, 128) tiling) — exact for every
-    reachable score when Lp * max_penalty stays within the headroom
-    (guarded in the wrapper); masked cells carry NEG16 and are
-    re-masked every row so they never drift toward overflow."""
+def _make_kernel(Lp: int, scheme, atype: AlignmentType, band_w: int):
+    BAND = 2 * band_w + 1
     eo, ee, fo, fe = gap_penalties(scheme)
-    is_local = atype == AlignmentType.LOCAL
-    NEG_VAL = NEG_INF if cd == jnp.int32 else -20000
+    local = atype == AlignmentType.LOCAL
+    NEG = np.int32(NEG_INF)  # numpy scalars: a kernel captures no arrays
 
-    CH = 8 if cd == jnp.int32 else 16  # sublane-aligned chunk rows
-
-    def kernel(pat_ref, qual_ref, text_ref, plen_ref, tlen_ref, out_ref):
-        NEG = jnp.asarray(NEG_VAL, cd)
-        # materialize full tiles once: (1, TB) operands broadcast along
-        # sublanes cost a replicated relayout in every row otherwise
-        plen = jnp.broadcast_to(plen_ref[0:1, :].astype(cd),
-                                (BAND_PAD, TB))
-        tlen = jnp.broadcast_to(tlen_ref[0:1, :].astype(cd),
-                                (BAND_PAD, TB))
-        krange = jax.lax.broadcasted_iota(
-            jnp.int32, (BAND_PAD, TB), 0).astype(cd)
-        in_band = krange < BAND
-        kk = krange * jnp.asarray(ee, cd)
-        j0 = krange - jnp.asarray(band_w, cd)
-        if atype == AlignmentType.GLOBAL:
-            h0 = jnp.where(
-                j0 == 0, 0, jnp.where(j0 > 0, -(eo + ee * j0), NEG)
-            ).astype(cd)
-        else:
-            h0 = jnp.where(j0 >= 0, 0, NEG).astype(cd)
-        H0 = jnp.where((j0 <= tlen) & in_band, h0, NEG).astype(cd)
-        H0 = jnp.broadcast_to(H0, (BAND_PAD, TB))
-        F0 = jnp.full((BAND_PAD, TB), NEG, cd)
-        # best tracking lives in (BAND_PAD, TB) accumulators updated
-        # with O(1) selects per row; the sublane reductions happen ONCE
-        # after the loop (a ~25% op-count cut vs per-row reductions)
-        if is_local:
-            snap0 = jnp.zeros((BAND_PAD, TB), cd)
-        else:
-            snap0 = jnp.full((BAND_PAD, TB), NEG, cd)
-        row0 = jnp.zeros((BAND_PAD, TB), cd)
-
-        def body(carry, i0, p, q, tsl):
-            H, F, snapH, snapR = carry
-            j = krange + (i0 + 1 - band_w).astype(cd)  # (BAND_PAD, TB)
-            valid = (j >= 0) & (j <= tlen) & in_band
-            mm = (scheme.mismatch_min + (
-                (scheme.mismatch_max - scheme.mismatch_min)
-                * jnp.minimum(q, 40)
-            ) // 40).astype(cd)
-            # comparisons in cd on full tiles so the masks carry
-            # cd-native layouts with no sublane-replication relayouts
-            t16 = tsl.astype(cd)
-            p16 = jnp.broadcast_to(p.astype(cd), t16.shape)
-            mm_b = jnp.broadcast_to(mm, t16.shape)
-            is_n = (p16 >= 4) | (t16 >= 4)
-            s = jnp.where(
-                is_n, jnp.asarray(-scheme.n_penalty, cd),
-                jnp.where(t16 == p16, jnp.asarray(scheme.match, cd),
-                          -mm_b),
-            )
-            up_H = _shift_down(H, NEG)
-            up_F = _shift_down(F, NEG)
-            F_new = jnp.maximum(up_H - jnp.asarray(fo + fe, cd),
-                                up_F - jnp.asarray(fe, cd))
-            Hhat = jnp.maximum(H + s, F_new)
-            if is_local:
-                Hhat = jnp.maximum(Hhat, 0)
-            Hhat_m = jnp.where(valid, Hhat, NEG)
-            A = _shift_up_by(Hhat_m, 1, NEG) - jnp.asarray(eo + ee, cd)
-            # weighted cummax (Kogge-Stone along the band)
-            Ew = A + kk
-            d = 1
-            while d < BAND_PAD:
-                Ew = jnp.maximum(Ew, _shift_up_by(Ew, d, NEG))
-                d *= 2
-            E_new = Ew - kk
-            H_new = jnp.maximum(Hhat, E_new)
-            if is_local:
-                H_new = jnp.maximum(H_new, 0)
-            H_new = jnp.where(valid, H_new, NEG)
-            F_new = jnp.where(valid, F_new, NEG)
-
-            row = (i0 + 1).astype(cd)
-            if is_local:
-                # per-cell running max; earliest row wins on ties
-                upd = (H_new > snapH) & (row <= plen)
-                snapH = jnp.where(upd, H_new, snapH)
-                snapR = jnp.where(upd, jnp.broadcast_to(row, snapR.shape),
-                                  snapR)
-            else:
-                # snapshot the final pattern row (per-lane plen)
-                hit = row == plen  # (1, TB) broadcast
-                snapH = jnp.where(hit, H_new, snapH)
-            return H_new, F_new, snapH, snapR
-
-        def chunk(c, carry):
-            # CH-row chunks: loads start at sublane-aligned offsets (a
-            # Mosaic requirement for wide tiles) and the inner CH rows
-            # are unrolled with static slices of the loaded values.
-            base = pl.multiple_of(c * CH, CH)
-            tchunk = text_ref[pl.ds(base, BAND_PAD + CH), :]
-            pchunk = pat_ref[pl.ds(base, CH), :]
-            qchunk = qual_ref[pl.ds(base, CH), :]
-            for r in range(CH):
-                carry = body(
-                    carry,
-                    c * CH + r,
-                    pchunk[r : r + 1, :],
-                    qchunk[r : r + 1, :],
-                    tchunk[r : r + BAND_PAD, :],
-                )
-            return carry
-
-        H, F, snapH, snapR = jax.lax.fori_loop(
-            0, Lp // CH, chunk, (H0, F0, snap0, row0)
-        )
-        # final reductions over the band axis (once, not per row):
-        # widen the cd accumulators to int32 first (Mosaic has no int16
-        # reductions) and re-derive masks from int32 sources
-        snapH = snapH.astype(jnp.int32)
-        if not is_local:
-            snapH = jnp.where(snapH <= jnp.int32(NEG_VAL // 2),
-                              jnp.int32(NEG_INF), snapH)
-        snapR = snapR.astype(jnp.int32)
-        kr32 = jax.lax.broadcasted_iota(jnp.int32, (BAND_PAD, TB), 0)
-        plen32 = plen_ref[0:1, :]
-        tlen32 = tlen_ref[0:1, :]
-        if atype == AlignmentType.GLOBAL:
-            k_goal = tlen32 - plen32 + band_w  # (1, TB)
-            best = jnp.max(
-                jnp.where(kr32 == k_goal, snapH, NEG_INF),
-                axis=0, keepdims=True,
-            )
-            best_i = plen32
-            best_k = k_goal
-        elif atype == AlignmentType.SEMI_GLOBAL:
-            best = jnp.max(snapH, axis=0, keepdims=True)
-            best_k = jnp.min(
-                jnp.where(snapH == best, kr32, BAND_PAD),
-                axis=0, keepdims=True,
-            )
-            best_i = plen32
-        else:
-            best = jnp.max(snapH, axis=0, keepdims=True)
-            # tie-break: earliest row, then smallest k
-            key = snapR * jnp.int32(BAND_PAD) + kr32
-            best_key = jnp.min(
-                jnp.where(snapH == best, key, jnp.int32(1 << 30)),
-                axis=0, keepdims=True,
-            )
-            best_i = best_key // BAND_PAD
-            best_k = best_key % BAND_PAD
-        zero_len = plen32 <= 0
-        best = jnp.where(zero_len,
-                         jnp.int32(0) if is_local else jnp.int32(NEG_INF),
-                         best)
-        best_i = jnp.where(zero_len, 0, best_i)
-        best_k = jnp.where(zero_len, band_w, best_k)
-        t_end = jnp.maximum(best_i + best_k - band_w, 0)
-        out_ref[0:1, :] = best
-        out_ref[1:2, :] = best_i
-        out_ref[2:3, :] = t_end
-        out_ref[3:8, :] = jnp.zeros((5, TB), jnp.int32)
-
-    return kernel
-
-
-def _make_kernel32(Lp: int, scheme: GotohScheme, atype: AlignmentType,
-                   band_w: int, BAND: int, BAND_PAD: int, TB: int):
-    """int32 body with sentinel-staged bounds (no per-row masks).
-
-    Inputs are pre-transformed by the wrapper:
-      - ``pm``: pattern symbols with N/pad rows remapped to 9 (never
-        equals any text symbol), so p-vs-N handling is free;
-      - ``mis``: per-(row, lane) mismatch penalty with the quality
-        function and pattern-N folded in (the //40 quality math leaves
-        the hot loop);
-      - ``text``: staged rows with j < 0 and j > tlen regions holding
-        SENT (=PAD_SYMBOL); real in-text N symbols are 4..6.
-
-    Exactness argument (vs the masked XLA twin):
-      * j < 0 region: diagonal/E moves into column j<=0 read SENT text
-        (score -SENT_S) and are dominated away; the F (vertical-gap)
-        chain within column j = 0 uses no text and reproduces the
-        twin's boundary column exactly.
-      * j > tlen region: every dependency path from an invalid column
-        back into a valid one would need j to decrease along a row or
-        column step, which the recurrences cannot do; invalid columns
-        start from NEG-masked inits (H0) or -SENT_S substitutions and
-        stay below SCORE_FLOOR forever (int32 drift bounded: Lp8 *
-        (SENT_S + max_penalty) added to NEG_INF stays above INT32_MIN,
-        guarded in the wrapper).
-      * k >= BAND padding sublanes would widen the band via the E scan,
-        so H keeps a single constant-tile in_band mask per row (1 op).
-      * LOCAL's zero floor pins invalid cells at exactly 0; with only
-        -SENT_S substitutions available they can never grow, so they
-        tie at best == 0 but never win a positive alignment.  Sink
-        positions are therefore defined only for score > 0 (callers
-        already require score >= score-min > 0).
-    Outputs below SCORE_FLOOR are clamped to NEG_INF.
-    """
-    eo, ee, fo, fe = gap_penalties(scheme)
-    is_local = atype == AlignmentType.LOCAL
-    cd = jnp.int32
-    CH = 8
-
-    def kernel(pm_ref, mis_ref, text_ref, plen_ref, tlen_ref, out_ref,
+    def kernel(pat_ref, qual_ref, text_ref, plen_ref, tlen_ref, out_ref,
                dirs_ref=None):
-        NEG = jnp.asarray(NEG_INF, cd)
-        krange = jax.lax.broadcasted_iota(jnp.int32, (BAND_PAD, TB), 0)
-        in_band = krange < BAND
-        kk = krange * ee
-        # E-scan constant: A = shift(Hhat) + (kk - eo - ee)
-        ksub = kk - (eo + ee)
-        j0 = krange - band_w
-        tlen = jnp.broadcast_to(tlen_ref[0:1, :], (BAND_PAD, TB))
-        if atype == AlignmentType.GLOBAL:
-            h0 = jnp.where(j0 == 0, 0, jnp.where(j0 > 0, -(eo + ee * j0), NEG))
-        else:
-            h0 = jnp.where(j0 >= 0, 0, NEG)
-        H0 = jnp.where((j0 <= tlen) & in_band, h0, NEG).astype(cd)
-        H0 = jnp.broadcast_to(H0, (BAND_PAD, TB))
-        F0 = jnp.full((BAND_PAD, TB), NEG, cd)
-        if is_local:
-            snap0 = jnp.zeros((BAND_PAD, TB), cd)
-        else:
-            snap0 = jnp.full((BAND_PAD, TB), NEG, cd)
-        row0 = jnp.zeros((BAND_PAD, TB), cd)
-        plen_row = plen_ref[0:1, :]
-        MATCH = jnp.asarray(scheme.match, cd)
-        NPEN = jnp.asarray(-scheme.n_penalty, cd)
-        SENT = jnp.asarray(-SENT_S, cd)
-
-        def body(carry, i0, pm, mis, tsl):
-            H, F, snapH, snapR = carry
-            pmb = jnp.broadcast_to(pm, tsl.shape)
-            misb = jnp.broadcast_to(mis, tsl.shape)
-            s = jnp.where(
-                tsl == PAD_SYMBOL, SENT,
-                jnp.where(tsl >= 4, NPEN,
-                          jnp.where(tsl == pmb, MATCH, -misb)),
-            )
-            up_H = _shift_down(H, NEG)
-            up_F = _shift_down(F, NEG)
-            f_open = up_H - (fo + fe)
-            F_new = jnp.maximum(f_open, up_F - fe)
-            Hdiag = H + s
-            Hhat = jnp.maximum(Hdiag, F_new)
-            if is_local:
-                Hhat = jnp.maximum(Hhat, 0)
-            # weighted cummax (Kogge-Stone along the band)
-            Ew0 = _shift_up_by(Hhat, 1, NEG) + ksub
-            Ew = Ew0
-            d = 1
-            while d < BAND_PAD:
-                Ew = jnp.maximum(Ew, _shift_up_by(Ew, d, NEG))
-                d *= 2
-            E_new = Ew - kk
-            H_new = jnp.maximum(Hhat, E_new)
-            if is_local:
-                H_new = jnp.maximum(H_new, 0)
-            H_new = jnp.where(in_band, H_new, NEG)
-
-            if dirs_ref is not None:
-                # traceback flags, matching banded_directions_batch for
-                # every walk-reachable cell (bits 0-1: H source; bit 2:
-                # E open; bit 3: F open)
-                flag = jnp.where(
-                    H_new == Hdiag, 0,
-                    jnp.where(H_new == E_new, 1, 2))
-                if is_local:
-                    flag = jnp.where(H_new <= 0, 3, flag)
-                dirs_row = (flag
-                            | ((Ew == Ew0).astype(jnp.int32) << 2)
-                            | ((F_new == f_open).astype(jnp.int32) << 3))
-                base = pl.multiple_of(i0 * BAND_PAD, BAND_PAD)
-                dirs_ref[pl.ds(base, BAND_PAD), :] = dirs_row.astype(
-                    jnp.uint8)
-
-            row = i0 + 1
-            if is_local:
-                upd = (H_new > snapH) & (row <= plen_row)
-                snapH = jnp.where(upd, H_new, snapH)
-                snapR = jnp.where(upd, jnp.broadcast_to(row, snapR.shape),
-                                  snapR)
+        plen = plen_ref[0, :]
+        tlen = tlen_ref[0, :]
+        zero = jnp.zeros_like(plen)
+        # row 0 (the twin's _row0_scheme): j0 = k - w text symbols
+        # consumed before the pattern starts
+        H0 = []
+        for k in range(BAND):
+            j0 = k - band_w
+            if atype == AlignmentType.GLOBAL:
+                h = 0 if j0 == 0 else (
+                    -(scheme.gap_open + scheme.gap_extend * j0)
+                    if j0 > 0 else NEG_INF)
             else:
-                hit = row == plen_row  # (1, TB) broadcast
-                snapH = jnp.where(hit, H_new, snapH)
-            return H_new, F_new, snapH, snapR
-
-        def chunk(c, carry):
-            base = pl.multiple_of(c * CH, CH)
-            tchunk = text_ref[pl.ds(base, BAND_PAD + CH), :]
-            pchunk = pm_ref[pl.ds(base, CH), :]
-            mchunk = mis_ref[pl.ds(base, CH), :]
-            for r in range(CH):
-                carry = body(
-                    carry,
-                    c * CH + r,
-                    pchunk[r : r + 1, :],
-                    mchunk[r : r + 1, :],
-                    tchunk[r : r + BAND_PAD, :],
-                )
-            return carry
-
-        H, F, snapH, snapR = jax.lax.fori_loop(
-            0, Lp // CH, chunk, (H0, F0, snap0, row0)
-        )
-        kr32 = krange
-        plen32 = plen_ref[0:1, :]
-        tlen32 = tlen_ref[0:1, :]
+                h = 0 if j0 >= 0 else NEG_INF
+            H0.append(jnp.where(j0 <= tlen, np.int32(h), NEG))
+        F0 = [jnp.full_like(plen, NEG_INF) for _ in range(BAND)]
+        T0 = [text_ref[k, :] for k in range(BAND)]
+        best0 = zero if local else jnp.full_like(plen, NEG_INF)
         if atype == AlignmentType.GLOBAL:
-            k_goal = tlen32 - plen32 + band_w  # (1, TB)
-            best = jnp.max(
-                jnp.where(kr32 == k_goal, snapH, NEG_INF),
-                axis=0, keepdims=True,
-            )
-            best_i = plen32
-            best_k = k_goal
-        elif atype == AlignmentType.SEMI_GLOBAL:
-            # gap-only (E) paths run past tlen paying no substitution,
-            # so final-row cells with j > tlen hold finite values: mask
-            # them here (k > tlen - plen + w <=> j > tlen at row plen);
-            # their k always exceeds every valid slot's k, so the
-            # tie-break min below needs no extra mask
-            k_max = tlen32 - plen32 + band_w  # (1, TB)
-            best = jnp.max(
-                jnp.where(kr32 <= k_max, snapH, NEG_INF),
-                axis=0, keepdims=True,
-            )
-            best_k = jnp.min(
-                jnp.where(snapH == best, kr32, BAND_PAD),
-                axis=0, keepdims=True,
-            )
-            best_i = plen32
-        else:
-            best = jnp.max(snapH, axis=0, keepdims=True)
-            key = snapR * jnp.int32(BAND_PAD) + kr32
-            best_key = jnp.min(
-                jnp.where(snapH == best, key, jnp.int32(1 << 30)),
-                axis=0, keepdims=True,
-            )
-            best_i = best_key // BAND_PAD
-            best_k = best_key % BAND_PAD
-        # contract: anything below the floor is "no path"
-        no_path = best < SCORE_FLOOR
-        best = jnp.where(no_path, jnp.int32(NEG_INF), best)
-        zero_len = plen32 <= 0
-        best = jnp.where(zero_len,
-                         jnp.int32(0) if is_local else jnp.int32(NEG_INF),
-                         best)
-        best_i = jnp.where(zero_len, 0, best_i)
-        best_k = jnp.where(zero_len, band_w, best_k)
-        t_end = jnp.maximum(best_i + best_k - band_w, 0)
-        out_ref[0:1, :] = best
-        out_ref[1:2, :] = best_i
-        out_ref[2:3, :] = t_end
-        out_ref[3:8, :] = jnp.zeros((5, TB), jnp.int32)
+            k_goal = tlen - plen + band_w
+            k_clip = jnp.clip(k_goal, 0, BAND - 1)
+
+        def row(i0, carry):
+            H, F, T, best, best_i, best_k = carry
+            p = pat_ref[i0, :]
+            q = jnp.minimum(qual_ref[i0, :], 40)
+            mm = scheme.mismatch_min + (
+                (scheme.mismatch_max - scheme.mismatch_min) * q) // 40
+            p_n = p >= 4
+            r = i0 + 1
+            Hn, Fn = [], []
+            e_run = h_prev_m = None  # E chain; masked Hhat of cell k-1
+            for k in range(BAND):
+                t = T[k]
+                s = jnp.where(p_n | (t >= 4), np.int32(-scheme.n_penalty),
+                              jnp.where(p == t, np.int32(scheme.match),
+                                        -mm))
+                up_h = H[k + 1] if k + 1 < BAND else NEG
+                up_f = F[k + 1] if k + 1 < BAND else NEG
+                f_open = up_h - (fo + fe)
+                f_new = jnp.maximum(f_open, up_f - fe)
+                h_diag = H[k] + s
+                hhat = jnp.maximum(h_diag, f_new)
+                if local:
+                    hhat = jnp.maximum(hhat, 0)
+                j = r + (k - band_w)
+                valid = (j >= 0) & (j <= tlen)
+                a = (h_prev_m if k else NEG) - (eo + ee)
+                e_run = a if k == 0 else jnp.maximum(a, e_run - ee)
+                h_new = jnp.maximum(hhat, e_run)
+                if local:
+                    h_new = jnp.maximum(h_new, 0)
+                h_new = jnp.where(valid, h_new, NEG)
+                f_new = jnp.where(valid, f_new, NEG)
+                if dirs_ref is not None:
+                    e_new = jnp.where(valid, e_run, NEG)
+                    flag = jnp.where(h_new == h_diag, 0,
+                                     jnp.where(h_new == e_new, 1, 2))
+                    if local:
+                        flag = jnp.where(h_new <= 0, 3, flag)
+                    flag = jnp.where(valid, flag, 3)
+                    flag = (flag | ((e_new == a).astype(jnp.int32) << 2)
+                            | ((f_new == f_open).astype(jnp.int32) << 3))
+                    dirs_ref[i0 * BAND + k, :] = flag.astype(jnp.uint8)
+                h_prev_m = jnp.where(valid, hhat, NEG)
+                Hn.append(h_new)
+                Fn.append(f_new)
+            # sink bookkeeping (the twin's per-row best update)
+            if atype == AlignmentType.GLOBAL:
+                hit = r == plen
+                hg = Hn[0]
+                for k in range(1, BAND):
+                    hg = jnp.where(k_clip == k, Hn[k], hg)
+                best = jnp.where(hit, hg, best)
+                best_i = jnp.where(hit, r, best_i)
+                best_k = jnp.where(hit, k_goal, best_k)
+            else:
+                rb, rk = Hn[0], zero
+                for k in range(1, BAND):
+                    up = Hn[k] > rb
+                    rb = jnp.where(up, Hn[k], rb)
+                    rk = jnp.where(up, k, rk)
+                upd = ((r <= plen) & (rb > best)) if local else r == plen
+                best = jnp.where(upd, rb, best)
+                best_i = jnp.where(upd, r, best_i)
+                best_k = jnp.where(upd, rk, best_k)
+            # slide the text window one symbol: row i0+1 reads staged
+            # rows i0+1 .. i0+BAND
+            T = T[1:] + [text_ref[i0 + BAND, :]]
+            return Hn, Fn, T, best, best_i, best_k
+
+        carry = (H0, F0, T0, best0, zero, zero + band_w)
+        _, _, _, best, best_i, best_k = jax.lax.fori_loop(0, Lp, row, carry)
+        out_ref[0, :] = best
+        out_ref[1, :] = best_i
+        out_ref[2, :] = jnp.maximum(best_i + best_k - band_w, 0)
+        out_ref[3, :] = zero
 
     return kernel
 
 
-def _make_kernel32_packed(Lp: int, scheme: GotohScheme,
-                          atype: AlignmentType, band_w: int, BAND: int,
-                          BAND_PAD: int, TB: int, LT_PAD: int, NWP: int):
-    """Packed-text variant of _make_kernel32: the text arrives as 2-bit
-    packed genome words (16 symbols per int32) fetched at each lane's
-    word-aligned window base, plus a per-lane bit offset.  A prologue
-    unpacks into a VMEM scratch (applying the j<0 prefix and j>tlen
-    tail sentinels in place), then the DP body runs unchanged.
-
-    Why: XLA symbol-window gathers cost ~9 ns/element; fetching 16x
-    fewer packed words cuts the extension stage's dominant cost
-    (measured 628 ms -> ~55 ms for 524k windows of 132 symbols)."""
-    inner = _make_kernel32(Lp, scheme, atype, band_w, BAND, BAND_PAD, TB)
-
-    def kernel(pm_ref, mis_ref, wtext_ref, off_ref, plen_ref, tlen_ref,
-               out_ref, text_s):
-        off = off_ref[0:1, :]  # (1, TB) in [0, 16)
-        tlen = tlen_ref[0:1, :]
-        SENT_ROW = jnp.full((1, TB), PAD_SYMBOL, jnp.int32)
-        for r in range(LT_PAD):
-            m = r - band_w  # window-relative text index
-            if m < 0:
-                text_s[r:r + 1, :] = SENT_ROW
-                continue
-            q0 = m >> 4
-            carry = ((m & 15) + off) >= 16
-            w0 = wtext_ref[q0:q0 + 1, :]
-            w1 = wtext_ref[q0 + 1:q0 + 2, :]
-            w = jnp.where(carry, w1, w0)
-            sh = (2 * (((m & 15) + off) & 15)).astype(jnp.int32)
-            val = jax.lax.shift_right_logical(w, sh) & 3
-            text_s[r:r + 1, :] = jnp.where(m >= tlen, SENT_ROW, val)
-        inner(pm_ref, mis_ref, text_s, plen_ref, tlen_ref, out_ref)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("scheme", "atype", "band_w", "interpret", "tile"),
-)
-def banded_score_pallas_packed(
-    patterns,  # (NB, Lp) symbols
-    plens,  # (NB,)
-    packed,  # (n_words,) int32 2-bit packed genome (16 sym/word)
-    win_start,  # (NB,) int32 window start in symbols
-    tlens,  # (NB,) valid window symbols (clip(n - win_start, 0, LT))
-    quals=None,
-    *,
-    scheme: GotohScheme,
-    atype: AlignmentType,
-    band_w: int,
-    interpret: bool = False,
-    tile: int = 256,
-):
-    """banded_score_pallas over windows of a 2-bit packed genome: the
-    wrapper gathers ~LT/16 packed words per lane (instead of LT
-    symbols) and the kernel unpacks in VMEM.  Bit-identical to the
-    symbol-window path."""
+def _stage(patterns, plens, texts, tlens, quals, band_w):
+    """(seq, batch)-major operands padded to whole programs: staged
+    text row m holds text[m - band_w] (PAD_SYMBOL outside the text)."""
     NB, Lp = patterns.shape
     BAND = 2 * band_w + 1
-    BAND_PAD = _band_pad(BAND)
-    Lp8 = (Lp + 7) // 8 * 8
-    LT_PAD = Lp8 + BAND_PAD + 16
-    tile = _auto_tile(BAND_PAD, Lp8, tile, extra_rows=LT_PAD)
-    nb_pad = (NB + tile - 1) // tile * tile
-    # words needed: window symbols [0, LT_PAD - band_w) + off<16 + w1 read
-    NWP = ((LT_PAD - band_w + 15) >> 4) + 2
-    NWP = (NWP + 7) // 8 * 8
+    nbp = -(-NB // BLOCK) * BLOCK
+    padb = nbp - NB
     if quals is None:
         quals = jnp.full((NB, Lp), 40, jnp.int32)
-
-    def prep(x, fill, cols=None):
-        x = x.astype(jnp.int32)
-        pad_cols = (0, 0) if cols is None else (0, cols - x.shape[1])
-        return jnp.pad(x, ((0, nb_pad - NB), pad_cols),
-                       constant_values=fill)
-
-    pats_t = prep(patterns, PAD_SYMBOL, Lp8).T
-    quals_t = prep(quals, 0, Lp8).T
-    ws = jnp.pad(win_start.astype(jnp.int32), (0, nb_pad - NB))
-    base = ws >> 4
-    off_t = (ws & 15)[None, :]
-    n_words = packed.shape[0]
-    if NWP <= PACK_TAIL_WORDS:
-        # one slice per lane (pack_genome_words' tail pad guarantees
-        # in-genome starts never clamp): nb_pad gather indices instead
-        # of nb_pad * NWP
-        wtext_t = window_slices(
-            packed, jnp.clip(base, 0, n_words - NWP), NWP).T
-    else:  # pathological band: fall back to the element gather
-        widx = jnp.clip(
-            base[None, :] + jnp.arange(NWP, dtype=jnp.int32)[:, None],
-            0, n_words - 1)
-        wtext_t = packed[widx]
-    plens_t = prep(plens[:, None], 0).T
-    tlens_t = prep(tlens[:, None], 0).T
-
-    pm_t, mis_t = _hot_precompute(pats_t, quals_t, scheme, Lp8, BAND)
-
-    kernel = _make_kernel32_packed(Lp8, scheme, atype, band_w, BAND,
-                                   BAND_PAD, tile, LT_PAD, NWP)
-    grid = (nb_pad // tile,)
-    bspec = lambda rows: pl.BlockSpec(
-        (rows, tile), lambda t: (0, t), memory_space=pltpu.VMEM
-    )
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((8, nb_pad), jnp.int32),
-        grid=grid,
-        in_specs=[
-            bspec(Lp8),  # pm
-            bspec(Lp8),  # mis
-            bspec(NWP),  # packed words
-            bspec(1),  # bit offsets
-            bspec(1),  # plens
-            bspec(1),  # tlens
-        ],
-        out_specs=bspec(8),
-        scratch_shapes=[pltpu.VMEM((LT_PAD, tile), jnp.int32)],
-        interpret=interpret,
-    )(pm_t, mis_t, wtext_t, off_t, plens_t, tlens_t)
-    return {
-        "score": out[0][:NB],
-        "p_end": out[1][:NB],
-        "t_end": out[2][:NB],
-    }
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("scheme", "atype", "band_w", "interpret", "tile"),
-)
-def banded_directions_pallas(
-    patterns,  # (NB, Lp)
-    plens,
-    texts,  # (NB, Lt)
-    tlens,
-    quals=None,
-    *,
-    scheme: GotohScheme,
-    atype: AlignmentType,
-    band_w: int,
-    interpret: bool = False,
-    tile: int = 256,
-):
-    """Pallas twin of ``alignment.banded_directions_batch``: one pass
-    emits the score sinks AND the per-cell traceback flag matrix
-    (uint8, walk-compatible semantics — see the kernel's dirs block).
-
-    Returns (res dict, dirs (NB, Lp8 * BAND_PAD) uint8, BAND_PAD):
-    the walk indexes flags at (i-1) * BAND_PAD + k.  Patterns beyond
-    LONG_THRESHOLD rows dispatch to the row-blocked long-read kernel
-    (ops/long_dp.py) transparently."""
-    NB, Lp = patterns.shape
-    if Lp > LONG_THRESHOLD:
-        from .long_dp import banded_directions_long_pallas
-
-        return banded_directions_long_pallas(
-            patterns, plens, texts, tlens, quals, scheme=scheme,
-            atype=atype, band_w=band_w, interpret=interpret)
+    pats_t = jnp.pad(patterns.astype(jnp.int32), ((0, padb), (0, 0)),
+                     constant_values=PAD_SYMBOL).T
+    quals_t = jnp.pad(quals.astype(jnp.int32), ((0, padb), (0, 0))).T
     Lt = texts.shape[1]
+    rows = Lp + BAND  # the window slides one row past the last DP row
+    texts_t = jnp.pad(
+        texts.astype(jnp.int32),
+        ((0, padb), (band_w, max(0, rows - band_w - Lt))),
+        constant_values=PAD_SYMBOL)[:, :rows].T
+    lens = lambda x: jnp.pad(x.astype(jnp.int32), (0, padb))[None, :]
+    return (pats_t, quals_t, texts_t, lens(plens), lens(tlens)), nbp
+
+
+def _call(Lp, nbp, band_w, scheme, atype, with_dirs, interpret, ops):
     BAND = 2 * band_w + 1
-    # u8 stores need 32-aligned sublane offsets
-    BAND_PAD = (max(32, _band_pad(BAND)) + 31) // 32 * 32
-    Lp8 = (Lp + 7) // 8 * 8
-    # the uint8 dirs output tile adds Lp8*BAND_PAD/4 int32-row-equivs
-    tile = _auto_tile(BAND_PAD, Lp8, tile,
-                      extra_rows=Lp8 * BAND_PAD // 4)
-    nb_pad = (NB + tile - 1) // tile * tile
-    if quals is None:
-        quals = jnp.full((NB, Lp), 40, jnp.int32)
-
-    def prep(x, fill, cols=None):
-        x = x.astype(jnp.int32)
-        pad_cols = (0, 0) if cols is None else (0, cols - x.shape[1])
-        return jnp.pad(x, ((0, nb_pad - NB), pad_cols),
-                       constant_values=fill)
-
-    pats_t = prep(patterns, PAD_SYMBOL, Lp8).T
-    quals_t = prep(quals, 0, Lp8).T
-    LT_PAD = Lp8 + BAND_PAD + 16
-    texts_p = jnp.pad(
-        prep(texts, PAD_SYMBOL),
-        ((0, 0), (band_w, max(0, LT_PAD - band_w - Lt))),
-        constant_values=PAD_SYMBOL,
-    )[:, :LT_PAD]
-    texts_t = texts_p.T
-    plens_t = prep(plens[:, None], 0).T
-    tlens_t = prep(tlens[:, None], 0).T
-    m = jnp.arange(LT_PAD, dtype=jnp.int32)[:, None] - band_w
-    texts_t = jnp.where(m >= tlens_t, PAD_SYMBOL, texts_t)
-
-    pm_t, mis_t = _hot_precompute(pats_t, quals_t, scheme, Lp8, BAND)
-
-    kernel = _make_kernel32(Lp8, scheme, atype, band_w, BAND, BAND_PAD,
-                            tile)
-    grid = (nb_pad // tile,)
-    bspec = lambda rows: pl.BlockSpec(
-        (rows, tile), lambda t: (0, t), memory_space=pltpu.VMEM
-    )
-    out, dirs = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((8, nb_pad), jnp.int32),
-            jax.ShapeDtypeStruct((Lp8 * BAND_PAD, nb_pad), jnp.uint8),
-        ),
-        grid=grid,
-        in_specs=[
-            bspec(Lp8), bspec(Lp8), bspec(LT_PAD), bspec(1), bspec(1),
-        ],
-        out_specs=(bspec(8), bspec(Lp8 * BAND_PAD)),
+    spec = lambda rows: pl.BlockSpec((rows, BLOCK), lambda b: (0, b))
+    out_shape = [jax.ShapeDtypeStruct((4, nbp), jnp.int32)]
+    out_specs = [spec(4)]
+    if with_dirs:
+        out_shape.append(jax.ShapeDtypeStruct((Lp * BAND, nbp), jnp.uint8))
+        out_specs.append(spec(Lp * BAND))
+    return pl.pallas_call(
+        _make_kernel(Lp, scheme, atype, band_w),
+        out_shape=out_shape,
+        grid=(nbp // BLOCK,),
+        in_specs=[spec(Lp), spec(Lp), spec(Lp + BAND), spec(1), spec(1)],
+        out_specs=out_specs,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=BLOCK // 32,
+                                                num_stages=1),
         interpret=interpret,
-    )(pm_t, mis_t, texts_t, plens_t, tlens_t)
-    res = {
-        "score": out[0][:NB],
-        "p_end": out[1][:NB],
-        "t_end": out[2][:NB],
-    }
-    return res, dirs.T[:NB], BAND_PAD
+        name="banded_dirs" if with_dirs else "banded_score",
+    )(*ops)
 
 
-#: tail words appended by pack_genome_words: lets the window fetch be
-#: one dynamic_slice per lane (never start-clamped) instead of a
-#: per-element gather — see window_slices
-PACK_TAIL_WORDS = 256
+def _result(out, NB):
+    return {"score": out[0, :NB], "p_end": out[1, :NB],
+            "t_end": out[2, :NB]}
 
 
-def pack_genome_words(symbols) -> "jnp.ndarray":
-    """2-bit pack genome symbols (values 0..3; N already substituted at
-    build time, ref: nvBWT) into int32 words, 16 symbols each, for
-    banded_score_pallas_packed.  Out-of-genome padding packs as 0 —
-    callers mask validity via tlens (the kernel sentinels j >= tlen).
-    PACK_TAIL_WORDS zero words are appended so per-lane window slices
-    (window_slices) never clamp for any in-genome window start."""
-    import numpy as _np
-    s = _np.asarray(symbols)
-    n = s.shape[0]
-    if n and int(s[:n].max()) >= 4:
-        raise ValueError(
-            "pack_genome_words: genome contains N/ambiguity symbols "
-            "(>= 4); packed 2-bit extension would silently score them "
-            "as G, diverging from the unpacked path's n_penalty.  "
-            "Substitute N at build time (tools/build_index.py does "
-            "this, ref: nvBWT seeded N-substitution) before packing.")
-    nw = (n + 15) // 16
-    s16 = _np.zeros(nw * 16, _np.uint32)
-    s16[:n] = s[:n].astype(_np.uint32)
-    s16 = s16.reshape(nw, 16)
-    w = _np.zeros(nw + PACK_TAIL_WORDS, _np.uint32)
-    for r in range(16):
-        w[:nw] |= s16[:, r] << _np.uint32(2 * r)
-    return jnp.asarray(w.view(_np.int32))
-
-
-def window_slices(arr, starts, width: int):
-    """Per-lane contiguous windows ``arr[s : s + width]`` fetched as
-    ONE slice-level gather (vmapped dynamic_slice: XLA gather with
-    slice_sizes=(width,), one index per LANE).  The TPU lowers
-    per-element gathers to ~per-index work, so
-    ``arr[starts[:, None] + arange(width)]`` costs rows*width index
-    lookups — this form costs rows (the extension stage's window fetch
-    was its dominant cost).  Starts are clamped to [0, len - width] by
-    dynamic_slice semantics; callers guarantee a tail pad (genome
-    lt_pad / PACK_TAIL_WORDS) so no live lane ever clamps."""
-    return jax.vmap(
-        lambda s: jax.lax.dynamic_slice(arr, (s,), (width,)))(starts)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("scheme", "atype", "band_w", "interpret", "tile",
-                     "compute_dtype"),
-)
-def banded_score_pallas(
-    patterns,  # (NB, Lp) symbols
-    plens,  # (NB,)
-    texts,  # (NB, Lt)
-    tlens,  # (NB,)
-    quals=None,  # (NB, Lp)
-    *,
-    scheme: GotohScheme,
-    atype: AlignmentType,
-    band_w: int,
-    interpret: bool = False,
-    tile: int = 256,
-    compute_dtype: str = "auto",
-):
-    """Drop-in Pallas twin of ``alignment.banded_score_batch``.
-
-    NB is padded to a multiple of `tile` internally; returns dict with
-    ``score``, ``p_end``, ``t_end`` of shape (NB,).  Patterns beyond
-    LONG_THRESHOLD rows dispatch to the row-blocked long-read kernel
-    (ops/long_dp.py) transparently.
-    """
+@functools.partial(jax.jit, static_argnames=("scheme", "atype", "band_w",
+                                             "interpret"))
+def banded_score_triton(patterns, plens, texts, tlens, quals=None, *,
+                        scheme, atype, band_w, interpret=False):
+    """Kernel twin of ``alignment.banded_score_batch`` (any NB)."""
     NB, Lp = patterns.shape
-    if Lp > LONG_THRESHOLD:
-        from .long_dp import banded_score_long_pallas
-
-        return banded_score_long_pallas(
-            patterns, plens, texts, tlens, quals, scheme=scheme,
-            atype=atype, band_w=band_w, interpret=interpret)
-    Lt = texts.shape[1]
-    BAND = 2 * band_w + 1
-    BAND_PAD = _band_pad(BAND)
-    Lp8 = (Lp + 7) // 8 * 8
-    tile = _auto_tile(BAND_PAD, Lp8, tile)
-    nb_pad = (NB + tile - 1) // tile * tile
-    if quals is None:
-        quals = jnp.full((NB, Lp), 40, jnp.int32)
-
-    def prep(x, fill, cols=None):
-        x = x.astype(jnp.int32)
-        pad_cols = (0, 0) if cols is None else (0, cols - x.shape[1])
-        return jnp.pad(x, ((0, nb_pad - NB), pad_cols),
-                       constant_values=fill)
-
-    pats_t = prep(patterns, PAD_SYMBOL, Lp8).T  # (Lp8, nb_pad)
-    quals_t = prep(quals, 0, Lp8).T
-    # stage text so text_t[i0 + k] = text[i0 + k - w]; chunked loads
-    # read up to Lp8 + BAND_PAD + 8 staged rows
-    LT_PAD = Lp8 + BAND_PAD + 16
-    texts_p = jnp.pad(
-        prep(texts, PAD_SYMBOL),
-        ((0, 0), (band_w, max(0, LT_PAD - band_w - Lt))),
-        constant_values=PAD_SYMBOL,
-    )[:, :LT_PAD]
-    texts_t = texts_p.T  # (LT_PAD, nb_pad)
-    plens_t = prep(plens[:, None], 0).T  # (1, nb_pad)
-    tlens_t = prep(tlens[:, None], 0).T
-    # sentinel the per-lane tail (staged row r holds text[r - w]; rows
-    # with r - w >= tlen may carry arbitrary gathered symbols)
-    m = jnp.arange(LT_PAD, dtype=jnp.int32)[:, None] - band_w
-    texts_t = jnp.where(m >= tlens_t, PAD_SYMBOL, texts_t)
-
-    out = banded_score_pallas_staged(
-        pats_t, quals_t, texts_t, plens_t, tlens_t,
-        scheme=scheme, atype=atype, band_w=band_w,
-        interpret=interpret, tile=tile, compute_dtype=compute_dtype,
-    )
-    return {k: v[:NB] for k, v in out.items()}
+    ops, nbp = _stage(patterns, plens, texts, tlens, quals, band_w)
+    (out,) = _call(Lp, nbp, band_w, scheme, atype, False, interpret, ops)
+    return _result(out, NB)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("scheme", "atype", "band_w", "interpret", "tile",
-                     "compute_dtype"),
-)
-def banded_score_pallas_staged(
-    pats_t,  # (Lp8, NB) int32, Lp8 % 8 == 0, pads = PAD_SYMBOL
-    quals_t,  # (Lp8, NB) int32
-    texts_t,  # (LT_PAD, NB) int32: texts_t[i0 + k] = text[i0 + k - w]
-    plens_t,  # (1, NB) int32
-    tlens_t,  # (1, NB) int32
-    *,
-    scheme: GotohScheme,
-    atype: AlignmentType,
-    band_w: int,
-    interpret: bool = False,
-    tile: int = 256,
-    compute_dtype: str = "auto",
-):
-    """Pre-staged entry: callers that already hold (seq, batch)-major
-    arrays (e.g. benchmarks staging once outside a timing loop) skip
-    the transpose/pad prologue.  NB must be a multiple of `tile`;
-    LT_PAD must be >= Lp8 + BAND_PAD + 8.
-
-    Contract: staged text rows r with r - band_w >= tlen (per lane)
-    must hold PAD_SYMBOL — the int32 body relies on sentinel staging
-    instead of per-row bounds masks (the unstaged wrapper enforces
-    this; static PAD_SYMBOL padding already satisfies it when
-    tlen == Lt for every lane)."""
-    Lp8, nb = pats_t.shape
-    BAND = 2 * band_w + 1
-    BAND_PAD = _band_pad(BAND)
-    LT_PAD = texts_t.shape[0]
-    tile = _auto_tile(BAND_PAD, Lp8, tile)
-    assert Lp8 % 8 == 0 and nb % tile == 0
-
-    grid = (nb // tile,)
-    bspec = lambda rows: pl.BlockSpec(
-        (rows, tile), lambda t: (0, t), memory_space=pltpu.VMEM
-    )
-    # int16 DP state when every reachable score fits the headroom and
-    # the tie-break key fits (LOCAL), with 16-row-aligned chunks
-    _eo, _ee, _fo, _fe = gap_penalties(scheme)
-    worst = max(_eo, _fo) + (Lp8 + BAND) * max(
-        _ee, _fe, scheme.mismatch_max, scheme.n_penalty,
-        abs(scheme.match))
-    i16_ok = (worst < 9000 and Lp8 % 16 == 0
-              and (Lp8 + 1) * BAND_PAD < 24576
-              and LT_PAD >= Lp8 + BAND_PAD + 16)
-    if compute_dtype == "auto":
-        # v5e has no int16 vector comparisons ("Target does not support
-        # this comparison"); int16 stays opt-in for later generations
-        compute_dtype = "int32"
-    cd = jnp.int16 if compute_dtype == "int16" and i16_ok else jnp.int32
-    CH = 8 if cd == jnp.int32 else 16
-    assert LT_PAD >= Lp8 + BAND_PAD + CH
-    if cd == jnp.int32:
-        pm_t, mis_t = _hot_precompute(pats_t, quals_t, scheme, Lp8, BAND)
-        kernel = _make_kernel32(Lp8, scheme, atype, band_w, BAND,
-                                BAND_PAD, tile)
-        ins = (pm_t, mis_t, texts_t, plens_t, tlens_t)
-    else:
-        kernel = _make_kernel_masked(Lp8, scheme, atype, band_w, BAND,
-                                     BAND_PAD, tile, cd=cd)
-        ins = (pats_t, quals_t, texts_t, plens_t, tlens_t)
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((8, nb), jnp.int32),
-        grid=grid,
-        in_specs=[
-            bspec(Lp8),  # patterns / pm
-            bspec(Lp8),  # quals / mis
-            bspec(LT_PAD),  # texts
-            bspec(1),  # plens
-            bspec(1),  # tlens
-        ],
-        out_specs=bspec(8),
-        interpret=interpret,
-    )(*ins)
-    return {
-        "score": out[0],
-        "p_end": out[1],
-        "t_end": out[2],
-    }
+@functools.partial(jax.jit, static_argnames=("scheme", "atype", "band_w",
+                                             "interpret"))
+def banded_directions_triton(patterns, plens, texts, tlens, quals=None, *,
+                             scheme, atype, band_w, interpret=False):
+    """Kernel twin of ``alignment.banded_directions_batch``: one pass
+    emits the sinks and the (NB, Lp, 2*band_w+1) uint8 flags."""
+    NB, Lp = patterns.shape
+    ops, nbp = _stage(patterns, plens, texts, tlens, quals, band_w)
+    out, dirs = _call(Lp, nbp, band_w, scheme, atype, True, interpret, ops)
+    dirs = dirs.T[:NB].reshape(NB, Lp, 2 * band_w + 1)
+    return _result(out, NB), dirs

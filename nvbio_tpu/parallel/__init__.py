@@ -1,7 +1,7 @@
 """Device-mesh scale-out.
 
 The reference is single-node (multi-GPU = one host thread per device;
-SURVEY.md §3.12).  The TPU-native design: a `jax.sharding.Mesh` with a
+SURVEY.md §3.12).  The design here: a `jax.sharding.Mesh` with a
 ``dp`` axis, read batches sharded over it, FM-index + genome replicated
 (hg-scale indexes fit per-chip HBM; ICI-sharded indexes are staged
 work), and GSPMD propagating the rest — no hand-written collectives on

@@ -2,7 +2,7 @@
 
 The reference has NO multi-node layer (single node, one host thread
 per GPU, shared-memory index server — SURVEY.md §3.12/§5.8); this is
-green-field TPU design for pod slices:
+green-field design for multi-host device meshes:
 
 - every host calls :func:`init_distributed` (``jax.distributed``),
   builds the global mesh, and replicates the index into its chips'

@@ -1,7 +1,7 @@
 """Q-gram index and filter.
 
 Ref parity: nvbio/qgram/ (qgram.h — ``QGramIndexDevice``; filter.h —
-``QGramFilter`` with diagonal-binned hit merging).  The TPU design
+``QGramFilter`` with diagonal-binned hit merging).  The design here
 keeps the index as (sorted keys, positions) arrays and answers batched
 queries with `jnp.searchsorted` — the gather-friendly equivalent of the
 reference's bucket tables.

@@ -3,7 +3,7 @@
 Ref parity: nvbio/qgram/qgram.h (``QGramIndexHost/Device::build``),
 qgram/filter.h (``QGramFilter`` — batch seed-hit generation + diagonal
 merging).  The q-group variant (qgroup.h) is a space optimization the
-flat layout subsumes on TPU (HBM-resident sorted arrays + binary
+flat layout subsumes (device-resident sorted arrays + binary
 search are already one gather per probe).
 """
 

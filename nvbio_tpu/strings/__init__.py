@@ -2,7 +2,7 @@
 
 Covers the reference's ``nvbio/strings/`` layer (ref: string_set.h —
 ``ConcatenatedStringSet``; seeds.h — ``enumerate_string_seeds``,
-``uniform_seeds_functor``; infix.h — ``InfixSet``).  On TPU the only
+``uniform_seeds_functor``; infix.h — ``InfixSet``).  On the device the only
 layout that matters is the padded batch matrix (reads, max_len) +
 length vector — the moral equivalent of the reference's strided layout,
 giving coalesced lane access.

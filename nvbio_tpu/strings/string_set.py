@@ -1,6 +1,6 @@
 """Padded read-batch packing (host NumPy → device-ready arrays).
 
-The TPU analog of the reference's string-set layouts (ref:
+The fixed-shape analog of the reference's string-set layouts (ref:
 nvbio/strings/string_set.h): variable-length reads become a fixed
 (R, max_len) matrix + length vector, padded with symbol 7 (never
 matches) and quality 0.

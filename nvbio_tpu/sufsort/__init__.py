@@ -13,7 +13,7 @@ module behind nvBWT and arXiv:1410.0562).  Paths:
   8-symbol bucketing -> per-chunk device radix refinement ->
   compacted doubling; HBM use is O(chunk), the blockwise dcs.h /
   compression_sort.h capability re-thought for XLA).
-- ``set_bwt_device`` — TPU set-BWT of read collections (the bwte.h /
+- ``set_bwt_device`` — device set-BWT of read collections (the bwte.h /
   arXiv:1410.0562 capability) as a bounded-depth LSD radix sort.
 """
 

@@ -1,4 +1,4 @@
-"""On-device suffix sorting (TPU-native, ``lax.sort``-based).
+"""On-device suffix sorting (``lax.sort``-based).
 
 Two device paths mirroring the reference's GPU sufsort module
 (ref: nvbio/sufsort/sufsort.h — ``cuda::suffix_sort``,
@@ -13,7 +13,7 @@ arXiv:1410.0562):
 - ``set_bwt_device``: BWT of a *set* of short reads.  Because read
   suffixes are bounded by the read length, the sort is a fixed number
   of LSD radix rounds over packed symbol words — fully static shapes,
-  no comparator needed.  This is the TPU-idiomatic replacement for the
+  no comparator needed.  This is the XLA-idiomatic replacement for the
   reference's incremental BWTE merge.
 
 Larger-than-HBM references use the native host SA-IS path

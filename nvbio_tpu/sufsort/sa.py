@@ -12,8 +12,9 @@ blockwise_suffix_sort; nvbio/sufsort/prefix_doubling_sufsort.h):
 - **Prefix-doubling** (vectorized NumPy, O(n log^2 n)): pure-Python
   fallback when no C++ toolchain exists.
 
-For in-HBM references there is also an on-device prefix-doubling sort
-(`sufsort.device.suffix_array_device`, `lax.sort`-based) and a TPU
+For references that fit in device memory there is also an on-device
+prefix-doubling sort (`sufsort.device.suffix_array_device`,
+`lax.sort`-based) and a device
 set-BWT for read collections (`sufsort.set_bwt`).
 
 Convention: suffixes compare with the end-of-string sentinel smaller

@@ -2,8 +2,8 @@
 
 Ref parity: nvFM-server/nvFM-server.cpp + basic/mmap.h
 (``ServerMappedFile``): the reference loads an FM-index once and
-serves it to client processes through POSIX shared memory.  On TPU
-the expensive copies are BOTH the host parse and the host->device
+serves it to client processes through POSIX shared memory.  On an
+accelerator the expensive copies are BOTH the host parse and the host->device
 upload (an hg-scale index costs minutes of device_put), and device
 memory is process-private — so the capability-equivalent design is a
 resident *mapping daemon*: one process loads the index, uploads it,
@@ -178,8 +178,7 @@ def serve(index_path, sock_path, batch=4096, max_read_len=320,
     def get_mapper(cls):
         if cls not in mappers:
             mappers[cls] = cls(fm, ssa, genome, params=params,
-                               contigs=contigs, lut=meta.get("lut"),
-                               use_pallas=False if cpu else None)
+                               contigs=contigs, lut=meta.get("lut"))
         return mappers[cls]
 
     if sharded:
@@ -193,8 +192,7 @@ def serve(index_path, sock_path, batch=4096, max_read_len=320,
                     else ShardedMapper)
             if scls not in mappers:
                 mappers[scls] = scls(sidx, genome, params=params,
-                                     contigs=contigs,
-                                     use_pallas=False if cpu else None)
+                                     contigs=contigs)
             return mappers[scls]
 
         # warm the SE mapper NOW: shard upload + resident pair-BWT

@@ -55,15 +55,14 @@ def main(argv=None):
         ).astype(np.int64),
         "lens": np.array(meta["contig_lens"], dtype=np.int64),
     }
-    mapper = MemMapper(fm, ssa, genome, params=params, contigs=contigs,
-                       use_pallas=False if args.cpu else None)
+    mapper = MemMapper(fm, ssa, genome, params=params, contigs=contigs)
     stats = MappingStats()
     writer_cls = SamWriter
     if args.sam.endswith(".bam"):
         from ..io.bam import BamWriter as writer_cls
     writer = writer_cls(args.sam, meta["contig_names"], meta["contig_lens"],
                         cmdline=" ".join(argv or sys.argv[1:]),
-                        program="tpu_mem")
+                        program="nvbio_mem")
 
     def packed():
         for names, seqs, quals in ReadBatchIterator(args.U, args.batch):

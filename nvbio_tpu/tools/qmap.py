@@ -60,16 +60,14 @@ def main(argv=None):
     }
     mapper = QGramMapper(
         fm, ssa, genome, q=args.gram, stride=args.stride,
-        max_hits=args.max_hits, params=params, contigs=contigs,
-        use_pallas=False if args.cpu else None,
-    )
+        max_hits=args.max_hits, params=params, contigs=contigs)
     stats = MappingStats()
     writer_cls = SamWriter
     if args.sam.endswith(".bam"):
         from ..io.bam import BamWriter as writer_cls
     writer = writer_cls(args.sam, meta["contig_names"], meta["contig_lens"],
                         cmdline=" ".join(argv or sys.argv[1:]),
-                        program="tpu_qmap")
+                        program="nvbio_qmap")
 
     def packed():
         for names, seqs, quals in ReadBatchIterator(args.U, args.batch):

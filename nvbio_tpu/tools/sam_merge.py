@@ -4,7 +4,7 @@ Concatenates per-host SAM shards in shard order (header from shard 0),
 producing output bit-identical to a single-host run over the unsharded
 input — the deterministic multi-host output path (SURVEY.md §5.8,
 §7.3(6)).  The reference has no equivalent (it is single-node); this is
-the DCN-side half of the TPU scale-out design.
+the host-side half of the multi-host scale-out design.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 Ref parity: nvbio-test/ (SURVEY.md §2 L7) — the reference ships a CLI
 functional-test binary; this is the same capability without pytest:
 build a small index in-process, map simulated reads (SE + PE), check
-alignment rate and true-locus accuracy, exercise the DP engines and
-(when a TPU is attached) the Pallas kernels.
+alignment rate and true-locus accuracy, and exercise the DP engines
+(the twin, and the GPU kernel when a card is attached).
 
     python -m nvbio_tpu.tools.self_test [--cpu] [--quick]
 
@@ -113,18 +113,18 @@ def main(argv=None):
         for r in range(8))
     check("banded Gotoh vs oracle", dp_ok)
 
-    # 4. Pallas kernel parity (TPU only; CPU runs the XLA twin above)
-    if jax.default_backend() == "tpu":
-        from ..ops.banded_dp import banded_score_pallas
+    # 4. the DP engine the selector picks here (the GPU kernel on a
+    # card, the twin elsewhere) agrees with the twin
+    from ..ops.banded_dp import banded_score, select_banded_dp
 
-        outp = banded_score_pallas(
-            jnp.asarray(pats), jnp.full(8, 100, jnp.int32),
-            jnp.asarray(texts), jnp.full(8, 130, jnp.int32),
-            jnp.asarray(quals), scheme=scheme,
-            atype=AlignmentType.SEMI_GLOBAL, band_w=15)
-        check("Pallas kernel == XLA twin",
-              bool((np.asarray(outp["score"])
-                    == np.asarray(out["score"])).all()))
+    outp = banded_score(
+        jnp.asarray(pats), jnp.full(8, 100, jnp.int32),
+        jnp.asarray(texts), jnp.full(8, 130, jnp.int32),
+        jnp.asarray(quals), scheme=scheme,
+        atype=AlignmentType.SEMI_GLOBAL, band_w=15)
+    check(f"{select_banded_dp(jax.default_backend(), 15)} DP == XLA twin",
+          bool((np.asarray(outp["score"])
+                == np.asarray(out["score"])).all()))
 
     # 5. suffix sorting: device prefix-doubling vs host SA-IS
     from ..sufsort import suffix_array

@@ -6,7 +6,7 @@ text or .npy symbols over the alphabet {A,C,G,T,$}.
 
 Ref parity: the reference's set-BWT tool over nvbio/sufsort/bwte.h
 (``BWTEContext`` — the incremental-merge algorithm of arXiv:1410.0562);
-on TPU the bounded suffix depth of short reads lets one fixed round of
+here the bounded suffix depth of short reads lets one fixed round of
 LSD radix sorts replace the merge (see sufsort/device.py).
 """
 

@@ -1,8 +1,10 @@
 """DP throughput microbenchmark (sw-benchmark equivalent).
 
 Ref parity: sw-benchmark/sw-benchmark.cpp — GCUPS across aligners
-(edit distance / SW / Gotoh) x alignment types x engines (Pallas TPU
-kernel vs XLA twin), random near-match batches.
+(edit distance / SW / Gotoh) x alignment types x engines (every DP
+engine ``ops.select_banded_dp`` can pick on this backend, and the XLA
+twin), random near-match batches.  Times end in ``block_until_ready``
+after a warm-up call; each row names the device.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ def main(argv=None):
     p.add_argument("--band", type=int, default=15)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--long", action="store_true",
-                   help="also bench the long-read tiers (row-blocked "
-                        "kernel, wide-band wavefront, two-pass CIGAR)")
+                   help="also bench the long-read tiers on the twin "
+                        "(long pattern, wide band, two-pass CIGAR)")
     p.add_argument("--long-len", type=int, default=10_000)
     p.add_argument("--wide-band", type=int, default=2000)
     from . import add_cpu_flag, maybe_cpu
@@ -40,11 +42,15 @@ def main(argv=None):
     from ..alignment import GotohScheme, AlignmentType, EDIT_DISTANCE_SCHEME
     from ..alignment.types import BOWTIE2_LOCAL_SCHEME
     from ..alignment.batched import banded_score_batch
-    from ..ops.banded_dp import banded_score_pallas
+    from ..ops.banded_dp import banded_score_triton, select_banded_dp
 
-    backend = jax.default_backend()
-    on_tpu = backend == "tpu"
-    NB = args.batch or (1 << 19 if on_tpu else 1 << 12)
+    from ..utils.device import card_name
+
+    dev = jax.devices()[0]
+    card = card_name(dev)
+    print(f"[sw_benchmark] {card} x{len(jax.devices())}", file=sys.stderr)
+    on_gpu = dev.platform == "gpu"
+    NB = args.batch or (1 << 17 if on_gpu else 1 << 12)
     LP, W = args.read_len, args.band
     LT = LP + 2 * W
     rng = np.random.default_rng(0)
@@ -54,6 +60,23 @@ def main(argv=None):
     plens = np.full(NB, LP, np.int32)
     tlens = np.full(NB, LT, np.int32)
     arr = tuple(map(jnp.asarray, (pats, plens, texts, tlens)))
+    rows = []
+
+    def timed(fn, *a):
+        """Mean seconds per call after one warm-up (compile) call."""
+        jax.block_until_ready(fn(*a))
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            jax.block_until_ready(fn(*a))
+        return (time.perf_counter() - t0) / args.iters
+
+    def report(aligner, engine, dt, cells, note=""):
+        gcups = cells / dt / 1e9
+        rows.append({"aligner": aligner, "engine": engine,
+                     "gcups": gcups, "ms": dt * 1e3,
+                     "device": card})
+        print(f"{aligner:20s} {engine:8s} {gcups:8.2f} GCUPS "
+              f"({dt*1e3:.3f} ms{note})", file=sys.stderr)
 
     cases = [
         ("edit_distance", EDIT_DISTANCE_SCHEME, AlignmentType.SEMI_GLOBAL),
@@ -61,97 +84,47 @@ def main(argv=None):
         ("gotoh_local", BOWTIE2_LOCAL_SCHEME, AlignmentType.LOCAL),
         ("gotoh_global", GotohScheme(), AlignmentType.GLOBAL),
     ]
-    engines = [("pallas" if on_tpu else "xla",
-                banded_score_pallas if on_tpu else banded_score_batch)]
-    rows = []
+    # every engine the selector can pick here, the twin always
+    engines = [("xla", banded_score_batch)]
+    if select_banded_dp(dev.platform, W) == "triton":
+        engines.insert(0, ("triton", banded_score_triton))
     for cname, scheme, atype in cases:
         for ename, fn in engines:
             f = jax.jit(lambda *a, s=scheme, t=atype, e=fn:
                         e(*a, scheme=s, atype=t, band_w=W)["score"])
-            np.asarray(f(*arr))  # compile
-            t0 = time.time()
-            for _ in range(args.iters):
-                np.asarray(f(*arr))
-            dt = (time.time() - t0) / args.iters
-            gcups = NB * LP * (2 * W + 1) / dt / 1e9
-            rows.append({"aligner": cname, "engine": ename,
-                         "gcups": round(gcups, 2),
-                         "ms": round(dt * 1e3, 2)})
-            print(f"{cname:20s} {ename:8s} {gcups:8.2f} GCUPS "
-                  f"({dt*1e3:.1f} ms)", file=sys.stderr)
+            report(cname, ename, timed(f, *arr), NB * LP * (2 * W + 1))
 
     # Myers bit-vector edit distance (full-matrix equivalent work)
     from ..alignment.myers import myers_edit_distance_batch
 
     fm_ = jax.jit(lambda p, pl, t, tl: myers_edit_distance_batch(
         p, pl, t, tl, atype=AlignmentType.SEMI_GLOBAL)[0])
-    np.asarray(fm_(arr[0], arr[1], arr[2], arr[3]))
-    t0 = time.time()
-    for _ in range(args.iters):
-        np.asarray(fm_(arr[0], arr[1], arr[2], arr[3]))
-    dt = (time.time() - t0) / args.iters
-    gcups = NB * LP * LT / dt / 1e9  # full-matrix cells
-    rows.append({"aligner": "myers_edit_distance", "engine": "bitvector",
-                 "gcups": round(gcups, 2), "ms": round(dt * 1e3, 2)})
-    print(f"{'myers_edit_distance':20s} {'bitvec':8s} {gcups:8.2f} GCUPS "
-          f"({dt*1e3:.1f} ms, full-matrix cells)", file=sys.stderr)
-
-    if on_tpu:  # W_PAD scales with LP; the wrapper guards VMEM
-        # Pallas Myers kernel (words-on-sublanes bit-parallel scan)
-        from ..ops.myers_pallas import myers_pallas
-
-        fp_ = jax.jit(lambda p, pl, t, tl: myers_pallas(
-            p, pl, t, tl, atype=AlignmentType.SEMI_GLOBAL)[0])
-        np.asarray(fp_(*arr))
-        t0 = time.time()
-        for _ in range(args.iters):
-            np.asarray(fp_(*arr))
-        dt = (time.time() - t0) / args.iters
-        gcups = NB * LP * LT / dt / 1e9
-        rows.append({"aligner": "myers_edit_distance",
-                     "engine": "pallas_bitvector",
-                     "gcups": round(gcups, 2), "ms": round(dt * 1e3, 2)})
-        print(f"{'myers_edit_distance':20s} {'pallas':8s} {gcups:8.2f} "
-              f"GCUPS ({dt*1e3:.1f} ms, full-matrix cells)",
-              file=sys.stderr)
-
-    if args.read_len > 512:
-        # long-read row-blocked kernel is the dispatch target past 512
-        print("(gotoh rows above used ops/long_dp.py — patterns beyond"
-              " the resident-kernel VMEM reach)", file=sys.stderr)
+    report("myers_edit_distance", "bitvec", timed(fm_, *arr),
+           NB * LP * LT, ", full-matrix cells")
 
     if args.long:
-        # ---- long-read tier: row-blocked kernel, wide-band wavefront,
-        # and the two-pass wide-band CIGAR (alignment/wide.py) ----
+        # ---- long-read tiers on the twin: a long pattern at a modest
+        # band, a wide band, and the two-pass wide-band CIGAR
+        # (alignment/wide.py) ----
         from ..alignment.wide import wide_band_cigar_batch
 
         LPL = args.long_len
         WL = max(args.band, 63)
-        NBL = (1 << 10) if on_tpu else 4
+        NBL = 1 << 10 if on_gpu else 4
         ltexts = rng.integers(0, 4, (NBL, LPL + 2 * WL)).astype(np.int8)
         lpats = rng.integers(0, 4, (NBL, LPL)).astype(np.int8)
         ltexts[:, WL : WL + LPL] = lpats
         larr = tuple(map(jnp.asarray, (
             lpats, np.full(NBL, LPL, np.int32), ltexts,
             np.full(NBL, LPL + 2 * WL, np.int32))))
-        eng = banded_score_pallas if on_tpu else banded_score_batch
-        fl = jax.jit(lambda *a: eng(
+        fl = jax.jit(lambda *a: banded_score_batch(
             *a, scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
             band_w=WL)["score"])
-        np.asarray(fl(*larr))
-        t0 = time.time()
-        for _ in range(args.iters):
-            np.asarray(fl(*larr))
-        dt = (time.time() - t0) / args.iters
-        gcups = NBL * LPL * (2 * WL + 1) / dt / 1e9
-        rows.append({"aligner": f"gotoh_long_{LPL}", "engine":
-                     "row_blocked" if on_tpu else "xla",
-                     "gcups": round(gcups, 2), "ms": round(dt * 1e3, 2)})
-        print(f"{'gotoh_long_' + str(LPL):20s} {'rowblk':8s} "
-              f"{gcups:8.2f} GCUPS ({dt*1e3:.1f} ms)", file=sys.stderr)
+        report(f"gotoh_long_{LPL}", "xla", timed(fl, *larr),
+               NBL * LPL * (2 * WL + 1), f", {NBL} x band {WL}")
 
         WW = args.wide_band
-        NBW = 128 if on_tpu else 2
+        NBW = 128 if on_gpu else 2
         LPW = min(LPL, 4000)
         wtexts = rng.integers(0, 4, (NBW, LPW + 2 * WW)).astype(np.int8)
         wpats = rng.integers(0, 4, (NBW, LPW)).astype(np.int8)
@@ -160,36 +133,22 @@ def main(argv=None):
             wtexts[b, off[b] : off[b] + LPW] = wpats[b]
         wp = (wpats, np.full(NBW, LPW, np.int32), wtexts,
               np.full(NBW, LPW + 2 * WW, np.int32))
-        if on_tpu:  # wavefront kernel is TPU-only (interpret too slow)
-            from ..ops.long_dp import banded_score_long_pallas
+        fw = jax.jit(lambda *a: banded_score_batch(
+            *a, scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
+            band_w=WW)["score"])
+        report(f"gotoh_wide_{WW}", "xla",
+               timed(fw, *map(jnp.asarray, wp)),
+               NBW * LPW * (2 * WW + 1), f", {NBW} x {LPW} bp")
 
-            fw = jax.jit(lambda *a: banded_score_long_pallas(
-                *a, scheme=GotohScheme(),
-                atype=AlignmentType.SEMI_GLOBAL, band_w=WW)["score"])
-            warr = tuple(map(jnp.asarray, wp))
-            np.asarray(fw(*warr))
-            t0 = time.time()
-            for _ in range(args.iters):
-                np.asarray(fw(*warr))
-            dt = (time.time() - t0) / args.iters
-            gcups = NBW * LPW * (2 * WW + 1) / dt / 1e9
-            rows.append({"aligner": f"gotoh_wide_{WW}",
-                         "engine": "wavefront",
-                         "gcups": round(gcups, 2),
-                         "ms": round(dt * 1e3, 2)})
-            print(f"{'gotoh_wide_' + str(WW):20s} {'wavefrt':8s} "
-                  f"{gcups:8.2f} GCUPS ({dt*1e3:.1f} ms)",
-                  file=sys.stderr)
-
-        t0 = time.time()
+        t0 = time.perf_counter()
         out = wide_band_cigar_batch(
             *wp, scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
-            band_w=WW, use_pallas=on_tpu)
-        dt = time.time() - t0
+            band_w=WW)
+        dt = time.perf_counter() - t0
         n_cig = int(out["tb_ok"].sum())
         rows.append({"aligner": f"wide_cigar_{WW}", "engine": "two_pass",
-                     "alignments_per_s": round(NBW / dt, 1),
-                     "cigars": n_cig, "ms": round(dt * 1e3, 2)})
+                     "alignments_per_s": NBW / dt, "cigars": n_cig,
+                     "ms": dt * 1e3, "device": card})
         print(f"{'wide_cigar_' + str(WW):20s} {'2pass':8s} "
               f"{NBW/dt:8.1f} aln/s ({dt*1e3:.1f} ms cold, "
               f"{n_cig}/{NBW} CIGARs)", file=sys.stderr)

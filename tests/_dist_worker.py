@@ -75,7 +75,7 @@ def main():
 
     fn = jax.jit(
         lambda r, l, q: map_batch(fm, ssa, gp, r, l, q,
-                                  params=params, use_pallas=False),
+                                  params=params),
         in_shardings=(sh, sh, sh),
     )
     out = fn(jr, jl, jq)

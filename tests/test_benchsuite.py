@@ -58,18 +58,5 @@ def test_hg_campaign_smoke(tmp_path):
     assert "wrong_at_mapq20" in j["calibration"]
 
 
-def test_long_tier_bench_smoke():
-    out = _run("long_tier_bench.py", "--smoke")
-    rows = json.loads(out.strip().splitlines()[-1])
-    cases = " ".join(r["case"] for r in rows)
-    assert "long_dp score" in cases
-    assert "wavefront score" in cases
-    assert "wavefront dirs" in cases
-    assert "pass3 walk" in cases
-    assert "myers" in cases
-    walk = [r for r in rows if r["case"].startswith("pass3 walk")][0]
-    assert walk["walked"] > 0  # the CIGAR walk really recovered paths
-
-
 def test_sa100_bench_smoke():
     _run("sa100_bench.py", "--smoke")  # asserts bit-identity itself

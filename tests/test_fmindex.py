@@ -168,8 +168,8 @@ def test_mapper_with_lut_identical_results():
         list(sim["seqs"].astype(np.uint8)), list(sim["quals"])
     )
     quals = quals.astype(np.int32)
-    m0 = Mapper(fm, ssa, genome, params=params, use_pallas=False)
-    m1 = Mapper(fm, ssa, genome, params=params, use_pallas=False, lut=lut)
+    m0 = Mapper(fm, ssa, genome, params=params)
+    m1 = Mapper(fm, ssa, genome, params=params, lut=lut)
     r0 = m0.map_reads(reads, lens, quals)
     r1 = m1.map_reads(reads, lens, quals)
     for a, b in zip(r0, r1):

@@ -1,9 +1,9 @@
-"""Long-read DP engine (ops/long_dp.py) + mapper long-read path.
+"""Long-read DP on the XLA twin + mapper long-read path.
 
 Covers the reference's long-alignment capability (SURVEY.md §3.5 warp
-scheduler, §5.8(a-c)): oracle-exact score+CIGAR at kb scale, the
-row-blocked Pallas kernel bit-identical to the XLA twin, and the
-seed-and-extend mapper accepting reads far beyond 512 bp.
+scheduler, §5.8(a-c)): oracle-exact score+CIGAR at kb scale (the twin
+is the long-read engine on every backend) and the seed-and-extend
+mapper accepting reads far beyond 512 bp.
 """
 
 import numpy as np
@@ -17,6 +17,7 @@ from nvbio_tpu.alignment import (
     banded_score_batch,
     banded_directions_batch,
 )
+from nvbio_tpu.alignment.types import NEG_INF, gap_penalties
 from nvbio_tpu.models.mapper import _runjump_walk
 
 
@@ -48,37 +49,40 @@ def _walk_runs(rops, rlens, r):
             if l > 0]
 
 
-@pytest.mark.parametrize("lp,band_w", [(640, 31), (1300, 15)])
-def test_long_kernel_matches_twin_and_walk(lp, band_w):
-    """Row-blocked Pallas kernel (interpret) == XLA twin: scores AND
-    the full traceback walk."""
-    from nvbio_tpu.ops.long_dp import banded_directions_long_pallas
-
-    pats, plens, quals, texts, tlens = _long_batch(6, lp, band_w, lp)
-    kw = dict(scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
+def _oracle_check(pats, plens, quals, texts, tlens, band_w, lanes):
+    """Twin score, sinks and run-jump-walk CIGAR == the scalar oracle's
+    on the given lanes (SEMI_GLOBAL, default scheme)."""
+    scheme = GotohScheme()
+    kw = dict(scheme=scheme, atype=AlignmentType.SEMI_GLOBAL,
               band_w=band_w)
     jp = jnp.asarray
-    ra, da = banded_directions_batch(jp(pats), jp(plens), jp(texts),
-                                     jp(tlens), jp(quals), **kw)
-    rb, db, BP = banded_directions_long_pallas(
-        jp(pats), jp(plens), jp(texts), jp(tlens), jp(quals),
-        interpret=True, tile=128, row_block=128, **kw)
-    np.testing.assert_array_equal(np.asarray(ra["score"]),
-                                  np.asarray(rb["score"]))
-    np.testing.assert_array_equal(np.asarray(ra["p_end"]),
-                                  np.asarray(rb["p_end"]))
-    np.testing.assert_array_equal(np.asarray(ra["t_end"]),
-                                  np.asarray(rb["t_end"]))
-    BAND = 2 * band_w + 1
-    ia = ra["p_end"].astype(jnp.int32)
-    ka = ra["t_end"].astype(jnp.int32) - ia + band_w
-    wa = _runjump_walk(jp(np.asarray(da).reshape(6, -1)), BAND, ia, ka)
-    ib = rb["p_end"].astype(jnp.int32)
-    kb = rb["t_end"].astype(jnp.int32) - ib + band_w
-    wb = _runjump_walk(jp(db), BP, ib, kb)
-    for r in range(6):
-        assert _walk_runs(wa[2], wa[3], r) == _walk_runs(wb[2], wb[3], r)
-        assert int(wa[0][r]) == int(wb[0][r])
+    res, dirs = banded_directions_batch(jp(pats), jp(plens), jp(texts),
+                                        jp(tlens), jp(quals), **kw)
+    nb = len(pats)
+    i0 = res["p_end"].astype(jnp.int32)
+    k0 = res["t_end"].astype(jnp.int32) - i0 + band_w
+    w = _runjump_walk(jp(np.asarray(dirs).reshape(nb, -1)),
+                      2 * band_w + 1, i0, k0)
+    for r in lanes:
+        o = align_oracle(pats[r, : plens[r]], texts[r, : tlens[r]],
+                         scheme, AlignmentType.SEMI_GLOBAL, band=band_w,
+                         quals=quals[r])
+        assert int(res["score"][r]) == o.score
+        assert int(res["p_end"][r]) == o.p_end
+        assert int(res["t_end"][r]) == o.t_end
+        runs = _walk_runs(w[2], w[3], r)[::-1]  # walk is end->start
+        assert [("M", "M", "D", "I")[op] for op, _l in runs] == [
+            op for op, _l in o.cigar]
+        assert [l for _op, l in runs] == [l for _op, l in o.cigar]
+        assert int(w[0][r]) == o.p_start
+
+
+@pytest.mark.parametrize("lp,band_w", [(640, 31), (1300, 15)])
+def test_long_twin_matches_oracle_and_walk(lp, band_w):
+    """The twin at long-read shapes: scores, sinks AND the traceback
+    walk equal the scalar oracle's."""
+    batch = _long_batch(6, lp, band_w, lp)
+    _oracle_check(*batch, band_w, lanes=range(3))
 
 
 def test_long_walk_matches_oracle_cigar():
@@ -110,12 +114,40 @@ def test_long_walk_matches_oracle_cigar():
         assert int(w[0][r]) == o.p_start
 
 
-@pytest.mark.parametrize("lp", [10_000])
-def test_very_long_score_matches_twin(lp):
-    """10 kb patterns through the row-blocked kernel (score-only,
-    interpret mode, small batch)."""
-    from nvbio_tpu.ops.long_dp import banded_score_long_pallas
+def _banded_semi_global_ref(p, t, q, scheme, w):
+    """Scalar banded SEMI_GLOBAL Gotoh with one band row in memory: the
+    oracle's recurrences (oracle.py) for patterns where its full
+    matrices do not fit.  Returns (score, t_end)."""
+    eo, ee, fo, fe = gap_penalties(scheme)
+    M, N = len(p), len(t)
+    Hp = {j: 0 for j in range(0, min(N, w) + 1)}  # row 0: free text
+    Fp = {}
+    for i in range(1, M + 1):
+        H, F, Hh = {}, {}, {}
+        e = NEG_INF
+        for j in range(max(0, i - w), min(N, i + w) + 1):
+            if j == 0:  # leading pattern symbols = costed insertions
+                H[0] = Hh[0] = F[0] = -(fo + i * fe)
+                e = NEG_INF
+                continue
+            s = scheme.substitution(int(p[i - 1]), int(t[j - 1]),
+                                    int(q[i - 1]))
+            diag = Hp.get(j - 1, NEG_INF) + s
+            F[j] = (max(Hp[j] - fo - fe, Fp.get(j, NEG_INF) - fe)
+                    if j in Hp else NEG_INF)
+            Hh[j] = max(diag, F[j])
+            e = (max(Hh[j - 1] - eo - ee, e - ee) if (j - 1) in Hh
+                 else NEG_INF)
+            H[j] = max(Hh[j], e)
+        Hp, Fp = H, F
+    j_best = min(j for j, v in Hp.items() if v == max(Hp.values()))
+    return Hp[j_best], j_best
 
+
+@pytest.mark.parametrize("lp", [10_000])
+def test_very_long_twin_score_matches_reference(lp):
+    """10 kb patterns: twin scores and sinks == a scalar banded
+    reference of the oracle's recurrences."""
     band_w = 15
     pats, plens, quals, texts, tlens = _long_batch(
         2, lp, band_w, 7, n_mut=100, n_indel=8)
@@ -124,13 +156,13 @@ def test_very_long_score_matches_twin(lp):
     jp = jnp.asarray
     a = banded_score_batch(jp(pats), jp(plens), jp(texts), jp(tlens),
                            jp(quals), **kw)
-    b = banded_score_long_pallas(jp(pats), jp(plens), jp(texts),
-                                 jp(tlens), jp(quals), interpret=True,
-                                 tile=128, row_block=512, **kw)
-    np.testing.assert_array_equal(np.asarray(a["score"]),
-                                  np.asarray(b["score"]))
-    np.testing.assert_array_equal(np.asarray(a["t_end"]),
-                                  np.asarray(b["t_end"]))
+    for r in range(2):
+        score, t_end = _banded_semi_global_ref(
+            pats[r, : plens[r]], texts[r, : tlens[r]], quals[r],
+            GotohScheme(), band_w)
+        assert int(a["score"][r]) == score
+        assert int(a["p_end"][r]) == plens[r]
+        assert int(a["t_end"][r]) == t_end
 
 
 def test_mapper_long_reads_end_to_end():
@@ -180,37 +212,9 @@ def _parse_cigar(c):
     return [(int(l), op) for l, op in re.findall(r"(\d+)([MIDNSHP=X])", c)]
 
 
-def test_wide_band_dirs_autoshrink_row_block():
-    """Wide bands (beyond the default row_block's VMEM reach) auto-
-    shrink the row block and still produce walk-identical flags —
-    CIGAR reach extends to band_w ~800 (ONT-class)."""
-    from nvbio_tpu.ops.long_dp import (banded_directions_long_pallas,
-                                       _band_fits)
-
-    band_w = 300
-    assert not _band_fits(band_w, 256, with_dirs=True)
-    assert _band_fits(band_w, 64, with_dirs=True)
-    lp = 800
-    pats, plens, quals, texts, tlens = _long_batch(
-        2, lp, band_w, 17, n_mut=40, n_indel=10)
-    kw = dict(scheme=GotohScheme(), atype=AlignmentType.SEMI_GLOBAL,
-              band_w=band_w)
-    jp = jnp.asarray
-    ra, da = banded_directions_batch(jp(pats), jp(plens), jp(texts),
-                                     jp(tlens), jp(quals), **kw)
-    rb, db, BP = banded_directions_long_pallas(
-        jp(pats), jp(plens), jp(texts), jp(tlens), jp(quals),
-        interpret=True, tile=128, **kw)
-    for f in ("score", "p_end", "t_end"):
-        np.testing.assert_array_equal(np.asarray(ra[f]),
-                                      np.asarray(rb[f]), err_msg=f)
-    BAND = 2 * band_w + 1
-    ia = ra["p_end"].astype(jnp.int32)
-    ka = ra["t_end"].astype(jnp.int32) - ia + band_w
-    wa = _runjump_walk(jp(np.asarray(da).reshape(2, -1)), BAND, ia, ka)
-    ib = rb["p_end"].astype(jnp.int32)
-    kb = rb["t_end"].astype(jnp.int32) - ib + band_w
-    wb = _runjump_walk(jp(db), BP, ib, kb)
-    for r in range(2):
-        assert _walk_runs(wa[2], wa[3], r) == _walk_runs(wb[2], wb[3], r)
-        assert int(wa[0][r]) == int(wb[0][r])
+def test_wide_band_twin_walk_matches_oracle():
+    """Wide bands (band_w 300, 800 bp): the twin's flags walk to the
+    oracle's CIGAR."""
+    band_w, lp = 300, 800
+    batch = _long_batch(2, lp, band_w, 17, n_mut=40, n_indel=10)
+    _oracle_check(*batch, band_w, lanes=range(2))

@@ -166,11 +166,9 @@ def test_one_mismatch_seeding_rescues_unseedable_reads():
     common = dict(batch_size=R, sa_sample=16, max_candidates=8,
                   seed_len=SL, seed_interval=SL)
     fm, ssa = build_fm_index(genome, sa_sample=16)
-    m0 = Mapper(fm, ssa, genome, params=MapperParams(**common),
-                use_pallas=False)
+    m0 = Mapper(fm, ssa, genome, params=MapperParams(**common))
     m1 = Mapper(fm, ssa, genome,
-                params=MapperParams(seed_mismatches=1, **common),
-                use_pallas=False)
+                params=MapperParams(seed_mismatches=1, **common))
     r0 = m0.map_reads(reads, lens, quals)
     r1 = m1.map_reads(reads, lens, quals)
     assert sum(r.aligned for r in r0) == 0
@@ -203,7 +201,7 @@ def test_all_mappings_mode_finds_planted_duplicates():
     )
     params = MapperParams(batch_size=R, sa_sample=16, max_candidates=8)
     fm, ssa = build_fm_index(genome, sa_sample=16)
-    m = Mapper(fm, ssa, genome, params=params, use_pallas=False)
+    m = Mapper(fm, ssa, genome, params=params)
     all_res = m.map_reads_all(reads, lens, quals.astype(np.int32))
     for i, alns in enumerate(all_res):
         poss = sorted(a.pos for a in alns)
@@ -252,13 +250,16 @@ def test_native_finish_matches_python_walk(mapper):
                 b.ref_span, b.score, b.mapq)
 
 
-def test_pallas_interpret_traceback_walk_matches_xla(mapper):
-    """The nested walk path (banded_directions_pallas inside the jitted
-    traceback_walk_windows) must produce the same CIGAR runs as the XLA
-    twin — regression for the traced-STRIDE reshape bug (the jitted
-    callee's Python-int stride return is a tracer under an outer jit)."""
+def test_pallas_interpret_traceback_walk_matches_xla(mapper, monkeypatch):
+    """The nested walk path with the GPU directions kernel (interpret
+    mode) inside the jitted traceback_walk_windows must produce the same
+    CIGAR runs as the XLA twin."""
+    import functools
+    import jax
     import jax.numpy as jnp
+    from nvbio_tpu.models import mapper as mapper_mod
     from nvbio_tpu.models.mapper import traceback_walk_batch
+    from nvbio_tpu.ops.banded_dp import banded_directions_triton
 
     m, genome = mapper
     sim = simulate_reads(genome, N_READS, READ_LEN, error_rate=0.02,
@@ -273,11 +274,15 @@ def test_pallas_interpret_traceback_walk_matches_xla(mapper):
     args = (m.genome, jnp.asarray(m.n, jnp.int32), jr, jl, jq8,
             fwd["win_start"], fwd["strand"])
     _, wx = traceback_walk_batch(*args, params=m.params,
-                                 use_pallas=False,
                                  active=fwd["aligned"])
+    # route the walk's DP to the kernel (the selector's GPU choice)
+    monkeypatch.setattr(mapper_mod, "banded_directions", functools.partial(
+        banded_directions_triton, interpret=True))
+    jax.clear_caches()  # the twin's trace of the walk is cached
     _, wp = traceback_walk_batch(*args, params=m.params,
-                                 use_pallas=True, interpret=True,
                                  active=fwd["aligned"])
+    monkeypatch.undo()
+    jax.clear_caches()
     aligned = np.asarray(fwd["aligned"])
     assert aligned.sum() > N_READS // 2
 
@@ -309,7 +314,7 @@ def test_uniform_shift_revcomp_path_identical(mapper):
     jr = jnp.asarray(reads)
     jl = jnp.asarray(lens.astype(np.int32))
     jq = jnp.asarray(quals.astype(np.int32))
-    kw = dict(params=m.params, use_pallas=False, lut=m.lut,
+    kw = dict(params=m.params, lut=m.lut,
               fm2=m.fm2, bi=m.bi)
     a = map_batch(m.fm, m.ssa, m.genome, jr, jl, jq,
                   uniform_shift=-1, **kw)

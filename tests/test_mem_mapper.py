@@ -19,7 +19,7 @@ def mem_mapper():
     params = MapperParams(batch_size=64, sa_sample=16, max_candidates=8,
                           max_smems=6)
     fm, ssa = build_fm_index(genome, sa_sample=params.sa_sample)
-    m = MemMapper(fm, ssa, genome, params=params, use_pallas=False)
+    m = MemMapper(fm, ssa, genome, params=params)
     return m, genome
 
 

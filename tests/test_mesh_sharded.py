@@ -30,9 +30,8 @@ def _map_both(genome, seqs, lens, quals, n_shards, params):
         genome, shard_bp=(len(genome) + n_shards - 1) // n_shards,
         overlap=2048, sa_sample=16, lut_k=8)
     assert len(sidx.shards) == n_shards
-    seq = ShardedMapper(sidx, genome, params=params, use_pallas=False)
-    mesh = MeshShardedMapper(sidx, genome, params=params,
-                             use_pallas=False)
+    seq = ShardedMapper(sidx, genome, params=params)
+    mesh = MeshShardedMapper(sidx, genome, params=params)
     rs = seq.map_reads(seqs, lens, quals)
     rm = mesh.map_reads(seqs, lens, quals)
     return rs, rm, seq, mesh
@@ -70,8 +69,7 @@ def test_mesh_batch_not_divisible_rejected(setup):
     with pytest.raises(ValueError, match="divide"):
         MeshShardedMapper(sidx, genome,
                           params=MapperParams(batch_size=100,
-                                              sa_sample=16),
-                          use_pallas=False)
+                                              sa_sample=16))
 
 
 def test_mesh_paired_matches_sequential(setup):
@@ -101,11 +99,9 @@ def test_mesh_paired_matches_sequential(setup):
 
     sidx = build_sharded_index(genome, shard_bp=60_000, overlap=2048,
                                sa_sample=16, lut_k=8)
-    seq = PairedShardedMapper(sidx, genome, params=params,
-                              use_pallas=False)
+    seq = PairedShardedMapper(sidx, genome, params=params)
     r1s, r2s, infos = seq.map_pairs(s1, lens, q, s2, lens, q)
-    mesh = MeshPairedShardedMapper(sidx, genome, params=params,
-                                   use_pallas=False)
+    mesh = MeshPairedShardedMapper(sidx, genome, params=params)
     r1m, r2m, infom = mesh.map_pairs(s1, lens, q, s2, lens, q)
 
     n_proper = 0
@@ -146,8 +142,8 @@ def test_mesh_all_matches_sequential(setup):
     lens24 = np.full(24, 100, np.int32)
     quals24 = np.full((24, 100), 35, np.uint8)
 
-    seq = ShardedMapper(sidx, g, params=params, use_pallas=False)
-    mesh = MeshShardedMapper(sidx, g, params=params, use_pallas=False)
+    seq = ShardedMapper(sidx, g, params=params)
+    mesh = MeshShardedMapper(sidx, g, params=params)
     alls = seq.map_reads_all(reads, lens24, quals24, max_alns=4)
     allm = mesh.map_reads_all(reads, lens24, quals24, max_alns=4)
     n_multi = 0

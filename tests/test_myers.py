@@ -66,132 +66,3 @@ def test_myers_local_rejected():
             np.zeros((1, 4), np.int32), np.array([4], np.int32),
             atype=AlignmentType.LOCAL,
         )
-
-
-def test_myers_pallas_matches_twin_interpret():
-    """Pallas Myers kernel (interpret) is bit-identical to the XLA
-    twin across modes, ragged lengths, N symbols, and 256 bp."""
-    import jax.numpy as jnp
-    from nvbio_tpu.ops.myers_pallas import myers_pallas
-    from nvbio_tpu.alignment.myers import myers_edit_distance_batch
-    from nvbio_tpu.alignment.types import AlignmentType
-
-    rng = np.random.default_rng(5)
-    NB, LP, LT = 48, 100, 140
-    plens = rng.integers(1, LP + 1, NB).astype(np.int32)
-    plens[:3] = (LP, 32, 64)  # word-boundary lengths
-    pats = rng.integers(0, 5, (NB, LP)).astype(np.int32)  # incl. N
-    texts = rng.integers(0, 4, (NB, LT)).astype(np.int32)
-    for b in range(NB):
-        L = plens[b]
-        t = pats[b, :L].copy()
-        for _ in range(5):
-            t[rng.integers(0, L)] = rng.integers(0, 4)
-        texts[b, :min(L, LT)] = t[:LT]
-    tlens = rng.integers(10, LT + 1, NB).astype(np.int32)
-    jp = jnp.asarray
-    for atype in (AlignmentType.SEMI_GLOBAL, AlignmentType.GLOBAL):
-        d0, e0 = myers_edit_distance_batch(
-            jp(pats), jp(plens), jp(texts), jp(tlens), atype=atype)
-        d1, e1 = myers_pallas(
-            jp(pats), jp(plens), jp(texts), jp(tlens), atype=atype,
-            interpret=True, tile=128)
-        np.testing.assert_array_equal(np.asarray(d0), np.asarray(d1))
-        np.testing.assert_array_equal(np.asarray(e0), np.asarray(e1))
-
-
-def test_myers_pallas_long_patterns():
-    """W_PAD scales with the pattern: 1 kb patterns (32 words) match
-    the XLA twin bit-exactly; the old 256 bp cap is gone."""
-    import jax.numpy as jnp
-    from nvbio_tpu.ops.myers_pallas import myers_pallas, _w_pad
-    from nvbio_tpu.alignment.myers import myers_edit_distance_batch
-    from nvbio_tpu.alignment.types import AlignmentType
-
-    assert _w_pad(256) == 8 and _w_pad(257) == 16 and _w_pad(1024) == 32
-    rng = np.random.default_rng(9)
-    NB, LP = 4, 1000
-    LT = LP + 60
-    plens = np.array([LP, 257, 512, 769], np.int32)
-    pats = rng.integers(0, 4, (NB, LP)).astype(np.int32)
-    texts = rng.integers(0, 4, (NB, LT)).astype(np.int32)
-    for b in range(NB):
-        L = plens[b]
-        t = pats[b, :L].copy()
-        for _ in range(30):
-            t[rng.integers(0, L)] = rng.integers(0, 4)
-        texts[b, 13:13 + L] = t
-    tlens = np.full(NB, LT, np.int32)
-    jp = jnp.asarray
-    for atype in (AlignmentType.SEMI_GLOBAL, AlignmentType.GLOBAL):
-        d0, e0 = myers_edit_distance_batch(
-            jp(pats), jp(plens), jp(texts), jp(tlens), atype=atype)
-        d1, e1 = myers_pallas(
-            jp(pats), jp(plens), jp(texts), jp(tlens), atype=atype,
-            interpret=True, tile=128)
-        np.testing.assert_array_equal(np.asarray(d0), np.asarray(d1))
-        np.testing.assert_array_equal(np.asarray(e0), np.asarray(e1))
-
-
-def test_myers_pallas_32kb_plan():
-    """32 kb patterns fit the VMEM model (text-chunked grid + state
-    scratch; the old ~8 kb cap is gone) — plan admittance checked by
-    TRACING the 32 kb call (jax.eval_shape runs the wrapper's VMEM
-    guard and builds the grid without executing ~1 G interpreter
-    cells; the pre-diet version executed them: 1 038 s of the CI
-    suite).  Exactness with planted edits runs at 9.2 kb — still past
-    the old 8 kb cap, so the multi-tile word path is exercised."""
-    import functools
-    import jax
-    import jax.numpy as jnp
-    from nvbio_tpu.ops.myers_pallas import myers_pallas
-    from nvbio_tpu.alignment.types import AlignmentType
-
-    # (a) 32 kb plan admittance: traces the kernel, no execution
-    LP32, LT32 = 32_768, 32_768 + 512
-    out = jax.eval_shape(
-        functools.partial(myers_pallas,
-                          atype=AlignmentType.SEMI_GLOBAL,
-                          interpret=True),
-        jax.ShapeDtypeStruct((1, LP32), jnp.int32),
-        jax.ShapeDtypeStruct((1,), jnp.int32),
-        jax.ShapeDtypeStruct((1, LT32), jnp.int32),
-        jax.ShapeDtypeStruct((1,), jnp.int32))
-    assert out[0].shape == (1,)
-
-    # (b) exact distance on a multi-word, multi-text-chunk problem
-    # (2 kb exercises the same word/chunk/state-carry paths as 9 or
-    # 32 kb — bigger only scales the interpreter bill; the 32 kb VMEM
-    # plan is what (a) checks)
-    rng = np.random.default_rng(11)
-    LP = 2_048
-    LT = LP + 512
-    pat = rng.integers(0, 4, (1, LP)).astype(np.int32)
-    text = rng.integers(0, 4, (1, LT)).astype(np.int32)
-    t = pat[0].copy()
-    ed_pos = rng.choice(LP, 25, replace=False)
-    t[ed_pos] = (t[ed_pos] + 1 + rng.integers(0, 3, 25)) % 4
-    off = 37
-    text[0, off:off + LP] = t
-    d, e = myers_pallas(
-        jnp.asarray(pat), jnp.array([LP], jnp.int32),
-        jnp.asarray(text), jnp.array([LT], jnp.int32),
-        atype=AlignmentType.SEMI_GLOBAL, interpret=True)
-    # substitutions only: the best end is the plant's end with exactly
-    # the planted edit count (uniform random elsewhere scores worse)
-    assert int(d[0]) == len(set(ed_pos.tolist()))
-    assert int(e[0]) == off + LP
-
-
-def test_myers_pallas_vmem_guard():
-    """Beyond the VMEM model's reach the wrapper raises with a clear
-    message instead of failing at Mosaic compile."""
-    import jax.numpy as jnp
-    from nvbio_tpu.ops.myers_pallas import myers_pallas
-
-    NB, LP = 1, 200_000
-    with pytest.raises(ValueError, match="working set"):
-        myers_pallas(
-            jnp.zeros((NB, LP), jnp.int32), jnp.array([LP], jnp.int32),
-            jnp.zeros((NB, LP), jnp.int32), jnp.array([LP], jnp.int32),
-            interpret=True)

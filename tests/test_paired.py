@@ -117,12 +117,13 @@ def test_paired_xs_and_ambiguous_mapq():
 
 
 def test_chunked_rescue_matches_wide_band():
-    """The Pallas chunked window rescue must agree with the XLA
-    window-wide band for every above-score-min alignment (the only ones
-    rescue consumes), including indel cases up to the gap budget."""
+    """The chunked window rescue must agree with the window-wide band
+    for every above-score-min alignment (the only ones rescue
+    consumes), including indel cases up to the gap budget."""
     import jax.numpy as jnp
     from nvbio_tpu.alignment.batched import banded_score_batch
     from nvbio_tpu.models.paired import _chunk_plan, _chunked_window_score
+    from nvbio_tpu.ops.banded_dp import select_banded_dp
     params = MapperParams(maxins=400)
     L = 96
     W = params.band_w
@@ -155,14 +156,10 @@ def test_chunked_rescue_matches_wide_band():
     wide = banded_score_batch(
         *args, scheme=params.scheme, atype=params.atype, band_w=rescue_w
     )
-    got = _chunked_window_score(*args, params, plan, interpret=True)
-    # both engines of the chunked path must agree bit-exactly (this is
-    # what makes CPU and TPU PE output identical)
-    xla = _chunked_window_score(*args, params, plan, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(got["score"]),
-                                  np.asarray(xla["score"]))
-    np.testing.assert_array_equal(np.asarray(got["t_end"]),
-                                  np.asarray(xla["t_end"]))
+    got = _chunked_window_score(*args, params, plan)
+    # the chunk band is beyond the register kernel's reach, so the GPU
+    # runs the same twin as the CPU (what makes their PE output agree)
+    assert select_banded_dp("gpu", plan[0]) == "xla"
     smin = math.ceil(params.score_min_a + params.score_min_b * L)
     sw = np.asarray(wide["score"])
     sg = np.asarray(got["score"])

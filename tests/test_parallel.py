@@ -21,14 +21,14 @@ def test_sharded_matches_single():
         n_genome=20_000, n_reads=32, read_len=64, batch_size=32
     )
     ref = map_batch(fm, ssa, genome, reads, lens, quals,
-                    params=params, use_pallas=False)
+                    params=params)
 
     mesh = make_mesh(8)
     fmr, ssar, gr = replicate(mesh, (fm, ssa, genome))
     r, l, q = shard_reads(mesh, reads, lens, quals)
     out = jax.jit(
         lambda r, l, q: map_batch(fmr, ssar, gr, r, l, q,
-                                  params=params, use_pallas=False),
+                                  params=params),
         in_shardings=(NamedSharding(mesh, P("dp")),) * 3,
     )(r, l, q)
     for k in ref:

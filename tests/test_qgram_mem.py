@@ -133,8 +133,7 @@ def test_qgram_mapper_end_to_end():
     genome = random_genome(60_000, seed=41)
     params = MapperParams(batch_size=48, sa_sample=16, max_candidates=8)
     fm, ssa = build_fm_index(genome, sa_sample=params.sa_sample)
-    m = QGramMapper(fm, ssa, genome, q=14, stride=7, params=params,
-                    use_pallas=False)
+    m = QGramMapper(fm, ssa, genome, q=14, stride=7, params=params)
     sim = simulate_reads(genome, 48, 100, seed=42, error_rate=0.02)
     reads, lens, quals, _ = pack_reads(
         list(sim["seqs"].astype(np.uint8)), list(sim["quals"])

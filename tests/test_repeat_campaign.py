@@ -5,8 +5,7 @@ high-copy elements, segdups, tandem arrays — utils/simulate.py
 repeat_structured_genome) with per-class reads; pins alignment rate,
 true-locus accuracy, and MAPQ calibration so repeat handling cannot
 regress silently.  This is the CI-sized guard for the full-scale
-(3.2 Gbp) repeat campaign, whose measured per-class table lives in
-BENCHMARKS.md ("Repeat campaign", round 4, run on the chip).
+(3.2 Gbp) repeat campaign, benchsuite/hg_campaign.py.
 """
 
 import numpy as np

@@ -160,14 +160,12 @@ def test_sharded_escalation_matches_single_index():
         sa_sample=8)
 
     sh1 = ShardedMapper(sidx, genome,
-                        params=MapperParams(max_effort=1, **base),
-                        use_pallas=False)
+                        params=MapperParams(max_effort=1, **base))
     r1 = sh1.map_reads(packed, lens, quals)
     assert all(not r.aligned for r in r1[:6])  # lost in round 1
 
     sh2 = ShardedMapper(sidx, genome,
-                        params=MapperParams(max_effort=2, **base),
-                        use_pallas=False)
+                        params=MapperParams(max_effort=2, **base))
     r2 = sh2.map_reads(packed, lens, quals)
     assert sh2.escalated >= 6
     fm, ssa = build_fm_index(genome, sa_sample=8, bi_sample=True)

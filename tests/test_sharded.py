@@ -45,13 +45,13 @@ def setup():
 def test_sharded_matches_single_index(setup):
     genome, params, reads, lens, quals, starts = setup
     fm, ssa = build_fm_index(genome, sa_sample=16)
-    single = Mapper(fm, ssa, genome, params=params, use_pallas=False)
+    single = Mapper(fm, ssa, genome, params=params)
     r_single = single.map_reads(reads, lens, quals)
 
     sidx = build_sharded_index(genome, shard_bp=60_000, overlap=2048,
                                sa_sample=16, lut_k=8)
     assert len(sidx.shards) == 3
-    sharded = ShardedMapper(sidx, genome, params=params, use_pallas=False)
+    sharded = ShardedMapper(sidx, genome, params=params)
     r_sharded = sharded.map_reads(reads, lens, quals)
 
     for i, (a, b) in enumerate(zip(r_single, r_sharded)):
@@ -85,12 +85,12 @@ def test_sharded_all_mode_matches_single_index(setup):
     quals = quals.astype(np.int32)
 
     fm, ssa = build_fm_index(g, sa_sample=16)
-    single = Mapper(fm, ssa, g, params=params, use_pallas=False)
+    single = Mapper(fm, ssa, g, params=params)
     a_single = single.map_reads_all(reads, lens, quals, max_alns=6)
 
     sidx = build_sharded_index(g, shard_bp=60_000, overlap=2048,
                                sa_sample=16, lut_k=8)
-    sharded = ShardedMapper(sidx, g, params=params, use_pallas=False)
+    sharded = ShardedMapper(sidx, g, params=params)
     a_sharded = sharded.map_reads_all(reads, lens, quals, max_alns=6)
 
     key = lambda alns: sorted((a.pos, a.strand, a.score) for a in alns)
@@ -128,14 +128,12 @@ def test_sharded_paired_matches_single_index(setup):
     q = np.full((56, 100), 35, np.uint8)
 
     fm, ssa = build_fm_index(genome, sa_sample=16)
-    single = PairedMapper(fm, ssa, genome, params=params,
-                          use_pallas=False)
+    single = PairedMapper(fm, ssa, genome, params=params)
     r1s, r2s, infos = single.map_pairs(s1, lens, q, s2, lens, q)
 
     sidx = build_sharded_index(genome, shard_bp=60_000, overlap=2048,
                                sa_sample=16, lut_k=8)
-    sh = PairedShardedMapper(sidx, genome, params=params,
-                             use_pallas=False)
+    sh = PairedShardedMapper(sidx, genome, params=params)
     r1h, r2h, infoh = sh.map_pairs(s1, lens, q, s2, lens, q)
 
     for i in range(56):
@@ -185,14 +183,12 @@ def test_sharded_paired_boundary_rescue(setup):
     q = np.full((n_pairs, L), 35, np.uint8)
 
     fm, ssa = build_fm_index(genome, sa_sample=16)
-    single = PairedMapper(fm, ssa, genome, params=params,
-                          use_pallas=False)
+    single = PairedMapper(fm, ssa, genome, params=params)
     r1s, r2s, infos = single.map_pairs(s1, lens, q, s2, lens, q)
 
     sidx = build_sharded_index(genome, shard_bp=60_000, overlap=2048,
                                sa_sample=16, lut_k=8)
-    sh = PairedShardedMapper(sidx, genome, params=params,
-                             use_pallas=False)
+    sh = PairedShardedMapper(sidx, genome, params=params)
     r1h, r2h, infoh = sh.map_pairs(s1, lens, q, s2, lens, q)
 
     for i, fs in enumerate(fss):
@@ -211,8 +207,7 @@ def test_sharded_paired_overlap_guard(setup):
     sidx = build_sharded_index(genome, shard_bp=60_000, overlap=256,
                                sa_sample=16, lut_k=0)
     with pytest.raises(ValueError, match="overlap"):
-        PairedShardedMapper(sidx, genome, params=params,
-                            use_pallas=False)
+        PairedShardedMapper(sidx, genome, params=params)
 
 
 def test_sharded_save_load_roundtrip(setup, tmp_path):
@@ -224,8 +219,7 @@ def test_sharded_save_load_roundtrip(setup, tmp_path):
     sidx2, genome2, man = load_sharded_index(prefix)
     np.testing.assert_array_equal(genome2, genome.astype(np.int8))
     assert man["lut_k"] == 8
-    m = ShardedMapper(sidx2, genome2.astype(np.uint8), params=params,
-                      use_pallas=False)
+    m = ShardedMapper(sidx2, genome2.astype(np.uint8), params=params)
     res = m.map_reads(reads, lens, quals)
     n_ok = sum(1 for i, r in enumerate(res)
                if r.aligned and r.pos == starts[i])
@@ -264,7 +258,7 @@ def test_sharded_fm2_modes_bit_identical(setup):
 
     def run(mode, stream):
         m = ShardedMapper(sidx, genome, params=params,
-                          use_pallas=False, fm2_mode=mode)
+                          fm2_mode=mode)
         assert m.fm2_mode == mode
         if not stream:
             return m.map_reads(reads, lens, quals)
@@ -311,7 +305,7 @@ def test_sharded_pe_fm2_stream_matches(setup):
 
     def run(mode):
         m = PairedShardedMapper(sidx, genome, params=params,
-                                use_pallas=False, fm2_mode=mode)
+                                fm2_mode=mode)
         it = iter([
             (["a"] * 16, s1[:16], lens[:16], q[:16], s2[:16],
              lens[:16], q[:16]),
@@ -354,9 +348,8 @@ def test_tail_sliver_folds_into_previous_shard(tmp_path):
     assert sidx.shards[-1][3] + sidx.shards[-1][4] == len(genome)
 
     fm, ssa = build_fm_index(genome, sa_sample=16)
-    single = Mapper(fm, ssa, genome, params=params, use_pallas=False)
-    sharded = ShardedMapper(sidx, genome, params=params,
-                            use_pallas=False)
+    single = Mapper(fm, ssa, genome, params=params)
+    sharded = ShardedMapper(sidx, genome, params=params)
     # reads inside and straddling the folded tail region
     starts = [60_000 - 80, 60_000 - 40, 60_000 + 900,
               len(genome) - 100, 15_000]

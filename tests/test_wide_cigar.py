@@ -1,11 +1,9 @@
 """Two-pass wide-band CIGAR (alignment/wide.py).
 
-The wide-band score tier (wavefront kernel) previously stopped at
-score-only; these tests pin the full contract of the two-pass
-traceback: pass-2's score equals the wide-band optimum (the derived
-band is a certificate, not a heuristic) and the emitted CIGAR runs
-re-score to exactly that optimum with consistent endpoints — for
-bands far beyond the directions kernels' VMEM reach (band_w >= 900).
+These tests pin the full contract of the two-pass traceback: pass-2's
+score equals the wide-band optimum (the derived band is a certificate,
+not a heuristic) and the emitted CIGAR runs re-score to exactly that
+optimum with consistent endpoints — for wide bands (band_w >= 900).
 """
 
 import numpy as np
@@ -83,7 +81,7 @@ def _rescore_runs(out, r, pats, texts, quals, scheme):
 
 @pytest.mark.parametrize("band_w", [900, 2000])
 def test_wide_cigar_matches_twin_score(band_w):
-    """XLA-twin path (use_pallas=False): pass-2 score == wide-band
+    """Pass-2 score == wide-band
     twin optimum; CIGAR re-scores to it; endpoints consistent."""
     rng = np.random.default_rng(99)
     lp = 700
@@ -96,7 +94,7 @@ def test_wide_cigar_matches_twin_score(band_w):
     ref = banded_score_batch(jp(pats), jp(plens), jp(texts), jp(tlens),
                              jp(quals), **kw)
     out = wide_band_cigar_batch(pats, plens, texts, tlens, quals,
-                                use_pallas=False, **kw)
+                                **kw)
     assert out["tb_ok"].all()
     np.testing.assert_array_equal(out["score"],
                                   np.asarray(ref["score"]).astype(np.int64))
@@ -107,32 +105,6 @@ def test_wide_cigar_matches_twin_score(band_w):
         assert i_end == int(out["p_end"][r])
         assert j_end == int(out["t_end"][r])
         assert i_end == lp  # SEMI_GLOBAL consumes the whole pattern
-
-
-def test_wide_cigar_pallas_interpret():
-    """Pallas path end-to-end in interpret mode (wavefront score pass
-    + row-blocked directions pass + run-jump walk) == twin path."""
-    rng = np.random.default_rng(7)
-    lp, band_w = 600, 900  # lp must stay past LONG_THRESHOLD=512 so
-    # the row-blocked tier (not the narrow banded kernel) is chosen;
-    # 2 lanes instead of 3 trims the interpreter bill
-    pats, plens, quals, texts, tlens = _wide_batch(
-        rng, 2, lp, band_w, n_sub=25, n_indel=5)
-    scheme = GotohScheme()
-    kw = dict(scheme=scheme, atype=AlignmentType.SEMI_GLOBAL,
-              band_w=band_w)
-    a = wide_band_cigar_batch(pats, plens, texts, tlens, quals,
-                              use_pallas=False, **kw)
-    b = wide_band_cigar_batch(pats, plens, texts, tlens, quals,
-                              use_pallas=True, interpret=True, **kw)
-    np.testing.assert_array_equal(a["score"], b["score"])
-    np.testing.assert_array_equal(a["tb_ok"], b["tb_ok"])
-    for r in range(len(pats)):
-        s, i_end, j_end = _rescore_runs(b, r, pats, texts, quals,
-                                        scheme)
-        assert s == int(b["score"][r])
-        assert i_end == int(b["p_end"][r])
-        assert j_end == int(b["t_end"][r])
 
 
 def test_derive_band_certificate():
@@ -157,17 +129,16 @@ def test_derive_band_certificate():
     # indel budget certificate holds and is far below the wide band
     assert (need < band_w).all()
     out = wide_band_cigar_batch(pats, plens, texts, tlens, quals,
-                                use_pallas=False, **kw)
+                                **kw)
     assert (out["tb_band"] >= need).all()
     np.testing.assert_array_equal(
         out["score"], np.asarray(ref["score"]).astype(np.int64))
 
 
 def test_wide_cigar_garbage_lane_takes_wavefront_tb():
-    """A lane whose certificate blows past max_tb_band no longer
-    reports tb_ok=False (pre-round-3 contract): pass 3 walks the
-    wavefront kernel's own flags, so it gets a CIGAR that re-scores
-    exactly too."""
+    """A lane whose certificate blows past max_tb_band still gets a
+    CIGAR: pass 3 walks the full-band flags of the twin, and the CIGAR
+    re-scores exactly too."""
     rng = np.random.default_rng(11)
     lp, band_w = 400, 900
     pats, plens, quals, texts, tlens = _wide_batch(
@@ -176,8 +147,8 @@ def test_wide_cigar_garbage_lane_takes_wavefront_tb():
     texts[1] = rng.integers(0, 4, texts.shape[1])
     scheme = GotohScheme()
     out = wide_band_cigar_batch(
-        pats, plens, texts, tlens, quals, use_pallas=False,
-        scheme=scheme, atype=AlignmentType.SEMI_GLOBAL, band_w=band_w,
+        pats, plens, texts, tlens, quals, scheme=scheme,
+        atype=AlignmentType.SEMI_GLOBAL, band_w=band_w,
         max_tb_band=255)
     assert out["tb_ok"].all()
     for r in range(2):
@@ -191,7 +162,7 @@ def test_wide_cigar_garbage_lane_takes_wavefront_tb():
 def test_wide_cigar_forced_gap_past_certificate_ladder():
     """A REAL 850 bp deletion (score gap ~2560 at default penalties):
     the indel-budget certificate exceeds the banded ladder's 767, so
-    the CIGAR must come from the wavefront-flag walk — verified by
+    the CIGAR must come from the pass-3 full-band flag walk — verified by
     exact re-scoring and by the 850-D run itself (VERDICT r2 missing
     #4 'Done' criterion)."""
     rng = np.random.default_rng(21)
@@ -219,7 +190,7 @@ def test_wide_cigar_forced_gap_past_certificate_ladder():
     from nvbio_tpu.alignment.wide import derive_tb_band, TB_BANDS
 
     out = wide_band_cigar_batch(pats, plens, texts, tlens, quals,
-                                use_pallas=False, **kw)
+                                **kw)
     need, _ = derive_tb_band(plens, out["score"], out["p_end"],
                              out["t_end"], scheme, band_w)
     assert need[0] > TB_BANDS[-1], "test must exceed the ladder"
@@ -261,7 +232,7 @@ def test_zero_extend_scheme_uses_original_band():
     ref = banded_score_batch(jp(pats), jp(plens), jp(texts), jp(tlens),
                              jp(quals), **kw)
     out = wide_band_cigar_batch(pats, plens, texts, tlens, quals,
-                                use_pallas=False, **kw)
+                                **kw)
     assert out["tb_ok"][0]
     assert int(out["score"][0]) == int(ref["score"][0]) == -5
     s, i_end, j_end = _rescore_runs(out, 0, pats, texts, quals, scheme)
